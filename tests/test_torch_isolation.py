@@ -1,0 +1,94 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``,
+the port runs with both blocked from import, and the vectorized engine
+never lands on the CPU unless the caller asks for it."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+BLOCKED = ("jax", "jaxlib", "repro")
+
+
+def _imported(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES
+             if "src" in p.parts}
+    for mod in ("core/engine_torch.py", "sim/vectorized.py",
+                "kernels/minskew.py", "kernels/hub_route.py",
+                "kernels/ref.py", "kernels/ops.py", "kernels/_build.py"):
+        assert f"repro_torch/{mod}" in names, mod
+    for src in ("minskew.cu", "hub_route.cu"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+                / src).is_file()
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_repro_imports(path):
+    bad = [name for name in _imported(path)
+           if name.split(".")[0] in BLOCKED]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_runs_with_jax_and_repro_blocked():
+    code = textwrap.dedent("""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked: {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        from repro_torch.sim import RackRing, Simulation, Topology
+        wl = RackRing(n_racks=2, hosts_per_rack=2, n_iters=4,
+                      cross_every=2)
+        rep = Simulation(Topology.racks(2, 2), wl).run(
+            engine="vectorized", device="cpu", verify=True)
+        assert rep.status == "ok" and rep.tier == "exact", rep.status
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not bad, bad
+        print("ok", rep.vtime_ns)
+        """)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok ")
+
+
+def test_no_device_without_cuda_raises(monkeypatch):
+    """With no device named and no CUDA, the engine refuses instead of
+    quietly running on the CPU."""
+    from repro_torch.sim import RackRing, Scenario, Simulation, Topology
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def make():
+        return Simulation(Topology.single_host(),
+                          RackRing(n_racks=1, hosts_per_rack=1, n_iters=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make().run(engine="vectorized")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make().sweep([Scenario("a")])
+    # the pure-Python engines take no device
+    assert make().run(engine="single").status == "ok"
