@@ -10,7 +10,8 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — both CUDA kernels compiled from ``src/repro_torch/kernels/csrc``;
+2. build — the four CUDA kernels compiled from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
 3. minskew — kernel vs plain version on the card, bit-equal, timed;
 4. hub_route — the same;
 5. main path — a 16,384-vtask ``ChipRingTraining`` (16 pods x 1,024
@@ -24,18 +25,38 @@ One JSON line per phase:
    included), to its solo run, and four lanes to the ``async`` engine;
 7. check_interval — the round loop of the main path and of the sweep
    timed with the stop condition read back every 1, 4 and 16 rounds;
-8. kernels — one object per kernel: launches on the main path, max
-   error against the plain version, times and the card's bound.
+8. flash_attention — kernel vs plain version at the serving path's
+   prefill shape (B=4, S=1024, H=32, Hkv=8, hd=128, causal), at S=4096
+   and at the edge shapes of tests/test_kernels.py, bfloat16 and
+   float32, timed beside ``scaled_dot_product_attention``;
+9. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
+   hd=128, S=1056, ragged lengths), at S=8192 and the edge shapes;
+10. serve — the serving path: ``BatchServer`` on full-width, full-depth
+   qwen3_4b in bfloat16 (random weights from a seed), 4 prompts of 1,024
+   tokens, 32 new tokens; one warm-up ``generate`` and 3 timed ones,
+   each with the kernel counters set to 0 just before and read just
+   after; then one profiled ``generate`` and profiled decode steps;
+11. serve_parity — the same entry point at full width, 2 layers,
+   float32: the card's logits and greedy tokens against the CPU run of
+   the same parameters (the plain versions);
+12. live_serve — ``record_live_serve`` on the card (smoke config), its
+   trace replayed bit-identically under the barrier and async engines;
+13. kernels — one object per kernel: launches on its path, max error
+   against the plain version, times, the card's bound and the library
+   call's time.
 
 It uses one card: the first visible one (``CUDA_VISIBLE_DEVICES`` is
 narrowed to it before CUDA starts).
 
 The last line is ``{"ok": true, "device": {...}}``.  ``*_ms`` times are
 CUDA-event medians over single calls after warm-up (what a caller waits,
-launch overhead included); ``*_device_ms`` are the kernels' own device
-time per call from ``torch.profiler``; ``bound_ms`` is the bytes the
-function must move over the card's 3.35 TB/s.  All on the card named in
-phase 1.
+launch overhead included); ``*_batch_ms`` are CUDA-event times of 20
+back-to-back calls over 20; ``*_device_ms`` are the kernels' own device
+time per call from ``torch.profiler`` (null where it saw none);
+``bound_ms`` is the larger of the bytes the function must move over the
+card's 3.35 TB/s and its operations over the card's peak for their type
+(989 TFLOP/s bfloat16 on the tensor cores, 67 TFLOP/s float32).  All on
+the card named in phase 1.
 """
 from __future__ import annotations
 
@@ -52,6 +73,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense peaks (NVIDIA data sheet), operations per second
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: kernel-vs-plain tolerance on the card, absolute, per dtype: bfloat16
+#: outputs are rounded once to bfloat16 (2^-8 relative on values of
+#: order 1); float32 differ only by the order of the float32 sums
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 #: timed calls per measurement, after warm-up
 ITERS = 30
 WARMUP = 5
@@ -81,11 +108,33 @@ def timed_ms(torch, fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
+def batch_ms(torch, fn, n: int = 20) -> float:
+    """CUDA-event time of ``n`` back-to-back calls of ``fn()`` over
+    ``n``, in ms: the device's time per call where the host enqueues
+    faster than the card runs (no host gap between calls)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def device_ms(torch, fn, names=None, iters: int = 20):
-    """Device time per call of ``fn()`` in ms from ``torch.profiler``:
-    the summed duration of the CUDA kernels it ran (only those whose
-    name contains one of ``names``, when given).  None when the
-    profiler saw no device time."""
+    """Device time per call of ``fn()`` in ms from ``torch.profiler``,
+    and the profiler's records per call.
+
+    Without ``names``: the summed duration of every CUDA kernel it ran,
+    over the calls.  With ``names`` (the port's kernels, each launched
+    once per call): the sum over those kernels of the mean duration of
+    the records the profiler kept, since it keeps only some records of
+    a kernel launched through ctypes.  None where it saw no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -94,10 +143,18 @@ def device_ms(torch, fn, names=None, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and (names is None or any(n in e.key for n in names)))
-    return us / iters / 1e3 if us > 0 else None
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0
+           and (names is None or any(n in e.key for n in names))]
+    records = sum(e.count for e in evs) / iters
+    if not evs:
+        return None, records
+    if names is None:
+        us = sum(e.self_device_time_total for e in evs) / iters
+    else:
+        us = sum(e.self_device_time_total / e.count for e in evs)
+    return us / 1e3, records
 
 
 MINSKEW_KERNELS = ("minima_kernel", "elig_kernel")
@@ -252,8 +309,9 @@ def phase_minskew(torch, np, dev):
             "kernel_ms": timed_ms(torch, lambda: minskew(*t)),
             "plain_ms": timed_ms(torch, lambda: minskew_plain(*t)),
             "kernel_device_ms": device_ms(torch, lambda: minskew(*t),
-                                          MINSKEW_KERNELS),
-            "plain_device_ms": device_ms(torch, lambda: minskew_plain(*t)),
+                                          MINSKEW_KERNELS)[0],
+            "plain_device_ms": device_ms(torch,
+                                         lambda: minskew_plain(*t))[0],
             "bound_ms": bound_ms(minskew_bytes(v, n, s))})
     for name, *arrs in minskew_edge_cases(np, rng):
         check_minskew(torch, np, dev, *arrs)
@@ -294,9 +352,9 @@ def phase_hub_route(torch, np, dev):
                 "plain_ms": timed_ms(torch, lambda: hub_route_plain(
                     send, ser, link, lat)),
                 "kernel_device_ms": device_ms(torch, lambda: hub_route(
-                    send, ser, link, ones, lat, ser_ns=ser), HUB_KERNELS),
+                    send, ser, link, ones, lat, ser_ns=ser), HUB_KERNELS)[0],
                 "plain_device_ms": device_ms(torch, lambda: hub_route_plain(
-                    send, ser, link, lat)),
+                    send, ser, link, lat))[0],
                 "bound_ms": bound_ms(hub_bytes(m, n_links))})
     # the float32 pin: 163 B at 1e9 B/s truncates to 162 on the f32
     # path and stays 163 with ser_ns
@@ -359,10 +417,10 @@ def phase_main_path_breakdown(torch, dev):
     a synchronize at each stage's end), and how busy the card is in the
     round loop (profiler device time over the loop's wall time).  These
     launches come after the main path's counts were read."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import engine_torch as et
+    from repro_torch.kernels.minskew import minskew
     from repro_torch.sim import vectorized as vz
     sim = main_path_sim()
     t0 = time.perf_counter()
@@ -378,16 +436,16 @@ def phase_main_path_breakdown(torch, dev):
     rep = vz._decompile(sim, comp, st, t3 - t0, device=dev, kernel=True,
                         verify=False)
     t4 = time.perf_counter()
+    minskew.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         tp = time.perf_counter()
         et.run_vec_tape(tape, st0, comp.max_rounds, kernel=True)
         torch.cuda.synchronize()
         loop_prof_s = time.perf_counter() - tp
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    kernels_us = {k: sum(e.self_device_time_total
-                         for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA and k in e.key)
+    by_kernel, _ = _device_kernels(
+        prof, {k: minskew.launches for k in MINSKEW_KERNELS})
+    busy_us = sum(by_kernel.values())
+    kernels_us = {k: sum(us for n, us in by_kernel.items() if k in n)
                   for k in MINSKEW_KERNELS}
     emit("main_path_breakdown", compile_s=t1 - t0, to_device_s=t2 - t1,
          loop_s=t3 - t2, decompile_s=t4 - t3, rounds=rep.sync_rounds,
@@ -503,6 +561,450 @@ def phase_check_interval(torch, np, dev, axis, tick: int,
             for stat, fn in (("median", statistics.median), ("min", min))})
 
 
+# ------------------------------------------------------- serving kernels
+
+
+FLASH_KERNELS = ("flash_kernel",)
+DECODE_KERNELS = ("decode_kernel",)
+#: (case, B, H, Hkv, Sq, Sk, hd, causal, window, timed): the serving
+#: path's prefill shape, a longer prompt, and tests/test_kernels.py's
+#: edge shapes (GQA, padded tail, window, cross attention, hd 128)
+FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
+               ("s4096", 4, 32, 8, 4096, 4096, 128, True, 0, True),
+               ("gqa", 1, 4, 2, 128, 128, 64, True, 0, False),
+               ("padded", 1, 8, 2, 96, 96, 32, True, 0, False),
+               ("window64", 1, 2, 1, 256, 256, 64, True, 64, False),
+               ("cross", 1, 2, 2, 64, 192, 32, False, 0, False),
+               ("hd128", 1, 6, 3, 128, 128, 128, True, 0, False)]
+#: (case, B, H, Hkv, S, hd, lengths or None for random, timed): the
+#: serving path's decode shape (S = 1,024 + 32 cache positions), a long
+#: cache, tests/test_kernels.py's decode shapes and a length-0 row
+DECODE_CASES = [("main", 4, 32, 8, 1056, 128, [1, 300, 777, 1056], True),
+                ("s8192", 4, 32, 8, 8192, 128, [1, 2048, 5000, 8192], True),
+                ("mha", 2, 4, 4, 256, 64, None, False),
+                ("gqa4", 2, 8, 2, 256, 64, None, False),
+                ("mqa_padded", 3, 4, 1, 300, 32, None, False),
+                ("hd128", 1, 16, 8, 512, 128, None, False),
+                ("empty_row", 3, 4, 2, 100, 32, [0, 1, 100], False)]
+#: the serving path: (arch, batch, prompt length, new tokens), full
+#: width and depth in bfloat16
+SERVE = ("qwen3_4b", 4, 1024, 32)
+#: the parity phase: (layers, batch, prompt length, new tokens) at the
+#: arch's full width in float32
+PARITY = (2, 2, 128, 8)
+
+
+def sdpa(q, k, v, **kw):
+    """The call to time: ``scaled_dot_product_attention`` on (B, H, S,
+    hd) tensors with fewer kv heads than query heads."""
+    import torch.nn.functional as F
+    return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
+
+
+def attn_bound_ms(n_bytes: int, flops: int, dtype: str):
+    """(bound ms, "bytes" or "operations")."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, per flat row."""
+    i = sum(min(sk, q + 1 if causal else sk)
+            - (max(0, q - window + 1) if window > 0 else 0)
+            for q in range(sq))
+    return max(i, 0)
+
+
+def _dname(torch, dt) -> str:
+    return {torch.bfloat16: "bfloat16", torch.float32: "float32"}[dt]
+
+
+def _err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def _hold(name: str, err: float, dtype: str, where) -> None:
+    if not err <= ATTN_TOL[dtype]:          # also catches NaN
+        raise AssertionError(f"{name} kernel != plain at {where} "
+                             f"({dtype}): max abs err {err}")
+
+
+def phase_flash_attention(torch, np, dev):
+    """Kernel vs plain version (``attention_flat_plain``) on the card;
+    times at the serving shapes beside ``scaled_dot_product_attention``
+    (timed here only: the port never calls it)."""
+    from repro_torch.kernels.flash_attention import flash_attention_flat
+    from repro_torch.kernels.ref import attention_flat_plain
+    g = torch.Generator(device=dev).manual_seed(2)
+    main = []
+    edge = []
+    for dt in (torch.bfloat16, torch.float32):
+        dname = _dname(torch, dt)
+        for name, b, h, hkv, sq, sk, hd, causal, window, timed in \
+                FLASH_CASES:
+            q = torch.randn(b * h, sq, hd, generator=g, device=dev).to(dt)
+            k = torch.randn(b * hkv, sk, hd, generator=g, device=dev).to(dt)
+            v = torch.randn(b * hkv, sk, hd, generator=g, device=dev).to(dt)
+            got = flash_attention_flat(q, k, v, causal=causal, window=window)
+            want = attention_flat_plain(q, k, v, causal=causal,
+                                        window=window)
+            torch.cuda.synchronize()
+            err = _err(got, want)
+            _hold("flash_attention", err, dname, name)
+            if not timed:
+                edge.append({"case": name, "dtype": dname,
+                             "max_abs_err": err})
+                continue
+            del got, want
+            iters = ITERS if sq <= 1024 else 10
+            kern = lambda: flash_attention_flat(q, k, v, causal=causal,
+                                                window=window)
+            plain = lambda: attention_flat_plain(q, k, v, causal=causal,
+                                                 window=window)
+            q4, k4, v4 = (t.view(b, -1, t.shape[1], hd) for t in (q, k, v))
+            lib = sdpa(q4, k4, v4, is_causal=causal)
+            elt = q.element_size()
+            n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
+            flops = 4 * hd * b * h * visible_pairs(sq, sk, causal, window)
+            bound, by = attn_bound_ms(n_bytes, flops, dname)
+            main.append({
+                "case": name, "dtype": dname, "B": b, "H": h, "Hkv": hkv,
+                "S": sq, "hd": hd, "max_abs_err": err,
+                "kernel_ms": timed_ms(torch, kern, iters),
+                "kernel_batch_ms": batch_ms(torch, kern),
+                **dict(zip(("kernel_device_ms", "kernel_device_records"),
+                           device_ms(torch, kern, FLASH_KERNELS))),
+                "plain_ms": timed_ms(torch, plain, iters),
+                "plain_batch_ms": batch_ms(torch, plain),
+                "plain_device_ms": device_ms(torch, plain)[0],
+                "library_ms": timed_ms(torch, lib, iters),
+                "library_batch_ms": batch_ms(torch, lib),
+                "library_device_ms": device_ms(torch, lib)[0],
+                "bound_ms": bound, "bound_by": by, "flops": flops,
+                "bytes": n_bytes})
+    emit("flash_attention", tolerance=ATTN_TOL, shapes=main, edge=edge)
+    return main[0]
+
+
+def phase_decode_attention(torch, np, dev):
+    """Kernel vs plain version (``decode_attention_plain``) on the card;
+    times at the decode shapes beside ``scaled_dot_product_attention``
+    with a boolean mask built from ``lengths``."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_plain
+    g = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+    main, edge = [], []
+    for dt in (torch.bfloat16, torch.float32):
+        dname = _dname(torch, dt)
+        for name, b, h, hkv, s, hd, lens, timed in DECODE_CASES:
+            if lens is None:
+                lens = rng.integers(1, s + 1, size=b).tolist()
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = torch.randn(b, h, hd, generator=g, device=dev).to(dt)
+            k = torch.randn(b, s, hkv, hd, generator=g, device=dev).to(dt)
+            v = torch.randn(b, s, hkv, hd, generator=g, device=dev).to(dt)
+            got = decode_attention(q, k, v, lengths)
+            want = decode_attention_plain(q, k, v, lengths)
+            torch.cuda.synchronize()
+            err = _err(got, want)
+            _hold("decode_attention", err, dname, name)
+            if name == "empty_row" and bool(got[0].any()):
+                raise AssertionError("decode_attention: a length-0 row "
+                                     "is not 0")
+            if not timed:
+                edge.append({"case": name, "dtype": dname,
+                             "lengths": lens, "max_abs_err": err})
+                continue
+            kern = lambda: decode_attention(q, k, v, lengths)
+            plain = lambda: decode_attention_plain(q, k, v, lengths)
+            mask = (torch.arange(s, device=dev)[None, None, None, :]
+                    < lengths[:, None, None, None])
+            q4 = q[:, :, None, :]
+            k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
+            lib = sdpa(q4, k4, v4, attn_mask=mask)
+            elt = q.element_size()
+            valid = int(sum(min(max(n, 0), s) for n in lens))
+            n_bytes = elt * (2 * q.numel() + 2 * valid * hkv * hd) \
+                + 4 * b
+            flops = 4 * hd * h * valid
+            bound, by = attn_bound_ms(n_bytes, flops, dname)
+            main.append({
+                "case": name, "dtype": dname, "B": b, "H": h, "Hkv": hkv,
+                "S": s, "hd": hd, "lengths": lens, "max_abs_err": err,
+                "kernel_ms": timed_ms(torch, kern),
+                "kernel_batch_ms": batch_ms(torch, kern),
+                **dict(zip(("kernel_device_ms", "kernel_device_records"),
+                           device_ms(torch, kern, DECODE_KERNELS))),
+                "plain_ms": timed_ms(torch, plain),
+                "plain_batch_ms": batch_ms(torch, plain),
+                "plain_device_ms": device_ms(torch, plain)[0],
+                "library_ms": timed_ms(torch, lib),
+                "library_batch_ms": batch_ms(torch, lib),
+                "library_device_ms": device_ms(torch, lib)[0],
+                "bound_ms": bound, "bound_by": by, "bytes": n_bytes})
+    emit("decode_attention", tolerance=ATTN_TOL, shapes=main, edge=edge)
+    return main[0]
+
+
+# ------------------------------------------------------- the serving path
+
+
+def serve_prompts(np, vocab: int, b: int, s: int, seed: int):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
+        np.int32)
+
+
+def _kernel_counts():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention_flat
+    return {"flash_attention": flash_attention_flat.launches,
+            "decode_attention": decode_attention.launches}
+
+
+def _zero_kernel_counts():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention_flat
+    flash_attention_flat.launches = decode_attention.launches = 0
+
+
+def _device_kernels(prof, launched: dict):
+    """({kernel name: device us}, {part: records seen}) of a profile's
+    CUDA kernels.  A kernel whose name contains a key of ``launched``
+    (the port's kernels, by their launch counters over the profiled
+    window) counts as the mean duration of the records the profiler
+    kept times its launches: it keeps only some records of a kernel
+    launched through ctypes."""
+    from torch.autograd import DeviceType
+    us, seen = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        t = e.self_device_time_total
+        for part, n in launched.items():
+            if part in e.key:
+                seen[part] = seen.get(part, 0) + e.count
+                t = t / e.count * n
+        us[e.key] = t
+    return us, seen
+
+
+def _launched() -> dict:
+    """The port's attention kernels' launch counters, by kernel name."""
+    counts = _kernel_counts()
+    return {"flash_kernel": counts["flash_attention"],
+            "decode_kernel": counts["decode_attention"]}
+
+
+def _device_ops(prof) -> int:
+    """How many operations (kernels and copies) a profile saw run on
+    the card."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def phase_serve(torch, np, dev):
+    """The serving path at full qwen3_4b width and depth, bfloat16."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.serve.loop import BatchServer
+    arch, batch, prompt_len, new = SERVE
+    cfg = configs.get(arch)
+    t0 = time.perf_counter()
+    params = registry.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    srv = BatchServer(cfg, params, max_new_tokens=new, device=dev)
+    prompts = serve_prompts(np, cfg.vocab, batch, prompt_len, seed=4)
+    logits, _ = srv._prefill(params, torch.from_numpy(prompts).to(dev))
+    if logits.shape != (batch, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"serve: prefill logits {tuple(logits.shape)}"
+                             f" not finite")
+    del logits
+    srv.generate(prompts)                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(3):
+        _zero_kernel_counts()
+        out = srv.generate(prompts)
+        counts = _kernel_counts()
+        st = out["stats"]
+        tok = out["tokens"]
+        if (tok.shape != (batch, new) or tok.min() < 0
+                or tok.max() >= cfg.vocab):
+            raise AssertionError(f"serve: tokens {tok.shape}, range "
+                                 f"{tok.min()}..{tok.max()}")
+        want = {"flash_attention": cfg.n_layers,
+                "decode_attention": cfg.n_layers * st.decode_steps}
+        if counts != want:
+            raise AssertionError(f"serve: launches {counts}, expected {want}")
+        runs.append({"prefill_s": st.prefill_s, "decode_s": st.decode_s,
+                     "per_token_ms": st.per_token_ms,
+                     "throughput_tok_s": st.throughput_tok_s,
+                     "decode_steps": st.decode_steps,
+                     "tokens_out": st.tokens_out, "launches": counts})
+    peak = torch.cuda.max_memory_allocated()
+    # one profiled generate: each kernel's share of the device time
+    _zero_kernel_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        srv.generate(prompts)
+        torch.cuda.synchronize()
+    gen_launched = _launched()
+    by_kernel, gen_seen = _device_kernels(prof, gen_launched)
+    total = sum(by_kernel.values())
+    share = {k: sum(us for n, us in by_kernel.items() if k in n)
+             / total for k in ("flash_kernel", "decode_kernel")}
+    # decode steps alone, profiled: the device's idle share and where a
+    # decode step's device time goes
+    _, cache = srv._prefill(params, torch.from_numpy(prompts).to(dev))
+    tok = torch.zeros(batch, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    n_steps = new - 1
+    _zero_kernel_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            logits, cache = srv._decode(params, tok, cache)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            tok.cpu()                            # as generate reads it
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dec_launched = _launched()
+    dec, dec_seen = _device_kernels(prof, dec_launched)
+    busy_s = sum(dec.values()) / 1e6
+    top = sorted(dec.items(), key=lambda kv: -kv[1])[:8]
+    med = {k: statistics.median(r[k] for r in runs)
+           for k in ("prefill_s", "decode_s", "per_token_ms",
+                     "throughput_tok_s")}
+    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=cfg.n_params(), dtype="bfloat16", batch=batch,
+         prompt_len=prompt_len, max_new_tokens=new, init_s=init_s, runs=runs,
+         median=med, peak_memory_bytes=peak,
+         generate_device_ms=total / 1e3,
+         kernel_share_of_device_time=share,
+         generate_kernel_launches=gen_launched,
+         generate_kernel_records_seen=gen_seen,
+         decode_profiled_steps=n_steps, decode_profiled_wall_s=wall,
+         decode_device_busy_s=busy_s,
+         decode_device_idle_share=1 - busy_s / wall,
+         decode_step_device_ops=_device_ops(prof) / n_steps,
+         decode_kernel_launches=dec_launched,
+         decode_kernel_records_seen=dec_seen,
+         decode_step_device_ms_by_kernel={
+             k[:80]: us / 1e3 / n_steps for k, us in top})
+    return runs[0]["launches"]
+
+
+def phase_serve_parity(torch, np, dev):
+    """Full width, 2 layers, float32: the card (kernels) against the CPU
+    (plain versions) on the same parameters."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.serve.loop import BatchServer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = 1e-3            # float32 sums of 2,560-9,728 terms in other
+    #                       orders (cuBLAS vs the CPU BLAS, kernels vs
+    #                       plain attention): about 1e-5 of the logits
+    n_layers, batch, prompt_len, new = PARITY
+    cfg = dataclasses.replace(configs.get(SERVE[0]), n_layers=n_layers,
+                              dtype=torch.float32)
+    gpu = registry.init(cfg, torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+    cpu = to_cpu(gpu)
+    prompts = serve_prompts(np, cfg.vocab, batch, prompt_len, seed=5)
+    card = BatchServer(cfg, gpu, max_new_tokens=new, device=dev)
+    host = BatchServer(cfg, cpu, max_new_tokens=new, device="cpu")
+    # logits of prefill and of every decode step, both fed the card's
+    # greedy tokens
+    lc, cc = card._prefill(gpu, torch.from_numpy(prompts).to(dev))
+    lh, ch = host._prefill(cpu, torch.from_numpy(prompts))
+    errs, gaps = [], []
+    for step in range(new):
+        lc_h = lc.cpu()
+        errs.append(float((lc_h - lh).abs().max()))
+        scale = float(lh.abs().max())
+        if not errs[-1] <= tol * max(1.0, scale):
+            raise AssertionError(f"serve_parity step {step}: max abs err "
+                                 f"{errs[-1]} (logit scale {scale})")
+        tc, th = lc_h.argmax(-1), lh.argmax(-1)
+        for lane in np.nonzero((tc != th).numpy())[0]:
+            top2 = lh[lane].topk(2).values
+            gap = float(top2[0] - top2[1])
+            gaps.append({"step": step, "lane": int(lane), "gap": gap})
+            if gap >= tol * max(1.0, scale):
+                raise AssertionError(f"serve_parity: token differs at "
+                                     f"step {step} lane {lane} with top-2 "
+                                     f"gap {gap}")
+        if step == new - 1:
+            break
+        lc, cc = card._decode(gpu, tc.to(torch.int32).to(dev), cc)
+        lh, ch = host._decode(cpu, tc.to(torch.int32), ch)
+    out_c = card.generate(prompts)
+    out_h = host.generate(prompts)
+    same = bool((out_c["tokens"] == out_h["tokens"]).all())
+    if not same and not gaps:
+        raise AssertionError("serve_parity: generate tokens differ")
+    emit("serve_parity", arch=cfg.name, n_layers=n_layers, dtype="float32",
+         batch=batch, prompt_len=prompt_len, new_tokens=new, tolerance=tol,
+         logits_max_abs_err=errs, token_gaps_where_differ=gaps,
+         tokens_equal=same, decode_steps=out_c["stats"].decode_steps)
+
+
+def replayed(report) -> dict:
+    """The report without wall time and without the live sections'
+    ``mode`` (``record`` or ``replay``), the fields a replay of a
+    recorded run must reproduce."""
+    d = strip_wall(report)
+    d["live"] = {k: {f: x for f, x in sec.items() if f != "mode"}
+                 for k, sec in d["live"].items()}
+    return d
+
+
+def phase_live_serve(torch, dev):
+    """``record_live_serve`` on the card (the JAX recorder's smoke
+    config), replayed bit-identically under the barrier and async
+    engines (``single`` takes one host; the scenario has two)."""
+    import tempfile
+
+    from repro_torch.sim import (CostLedger, live_serve_sim,
+                                 record_live_serve, serve_latency)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "live_serve_trace.json"
+        _zero_kernel_counts()
+        rep, ledger = record_live_serve(path, device=dev)
+        counts = _kernel_counts()
+        if rep.status != "ok" or min(counts.values()) < 1:
+            raise AssertionError(f"live_serve: status {rep.status}, "
+                                 f"launches {counts}")
+        want = replayed(rep)
+        for eng in ("barrier", "async"):
+            got = replayed(live_serve_sim(CostLedger.replay(path)).run(
+                engine=eng))
+            if any(got[f] != want[f] for f in CORE_FIELDS):
+                raise AssertionError(f"live_serve: replay on {eng} != "
+                                     f"the record run")
+    emit("live_serve", status=rep.status, vtime_ns=rep.vtime_ns,
+         requests=len(ledger.meta["serve"]["arrivals"]),
+         probe_span_ns=ledger.meta["serve_probe"]["probe_span_ns"],
+         serve_latency=serve_latency(rep), launches=counts,
+         replays_equal=["barrier", "async"])
+
+
 def main() -> int:
     card = use_one_card()
     import numpy as np
@@ -521,23 +1023,36 @@ def main() -> int:
     launches = phase_main_path(torch, dev)
     phase_main_path_breakdown(torch, dev)
     phase_check_interval(torch, np, dev, *phase_sweep(torch, dev))
+    fa = phase_flash_attention(torch, np, dev)
+    da = phase_decode_attention(torch, np, dev)
+    launches.update(phase_serve(torch, np, dev))
+    phase_serve_parity(torch, np, dev)
+    phase_live_serve(torch, dev)
     kernels = []
     for kname, row, src, tpu in (
             ("minskew", ms, "src/repro_torch/kernels/csrc/minskew.cu",
              "src/repro/kernels/minskew.py:67"),
             ("hub_route", hr, "src/repro_torch/kernels/csrc/hub_route.cu",
-             "src/repro/kernels/hub_route.py:78")):
+             "src/repro/kernels/hub_route.py:78"),
+            ("flash_attention", fa,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:91"),
+            ("decode_attention", da,
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:74")):
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches[kname], "max_abs_err": row["max_abs_err"],
-            "bit_equal": row["max_abs_err"] == 0, "ms": row["kernel_ms"],
+            "ms": row["kernel_ms"],
             "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "device_ms": row["kernel_device_ms"],
             "plain_device_ms": row["plain_device_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
+            "bound_ms": row["bound_ms"],
+            "bound_by": row.get("bound_by", "bytes"),
+            "library_ms": row.get("library_ms"),
             "shape": {k: row[k] for k in row
-                      if k in ("V", "N", "S", "M", "links")}})
+                      if k in ("V", "N", "S", "M", "links", "B", "H", "Hkv",
+                               "hd", "dtype", "lengths")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -59,14 +59,15 @@ class TickRangeError(ValueError):
     ``tick_ns=`` for the facade compiler)."""
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None,
+                   what: str = "the vectorized engine") -> torch.device:
     """``None`` means ``"cuda"``; without CUDA that raises — a run never
     lands on the CPU unless the caller asked for it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device: the vectorized engine runs on the card "
-                "unless the caller asks for the CPU (device='cpu')")
+                f"no CUDA device: {what} runs on the card unless the "
+                f"caller asks for the CPU (device='cpu')")
         return torch.device("cuda")
     return torch.device(device)
 

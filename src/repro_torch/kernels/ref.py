@@ -1,19 +1,82 @@
 """Plain PyTorch versions of the port's kernels, plus the numpy oracles.
 
-``minskew_plain`` and ``hub_route_plain`` compute exactly what the CUDA
-kernels compute, with ordinary tensor ops: the CPU path of every
-wrapper, and what ``chip_smoke.py`` holds each kernel against on the
-card.  ``minskew_ref`` and ``hub_visibility_ref`` are the sequential
-numpy oracles, copied from the JAX package.  Every result is integer,
-so all of them agree bit for bit.
+``minskew_plain``, ``hub_route_plain``, ``attention_flat_plain`` and
+``decode_attention_plain`` compute what the CUDA kernels compute, with
+ordinary tensor ops: the CPU path of every wrapper, and what
+``chip_smoke.py`` holds each kernel against on the card.
+``minskew_ref`` and ``hub_visibility_ref`` are the sequential numpy
+oracles, copied from the JAX package.  The scheduler results are
+integer, so those agree bit for bit; attention agrees within a
+floating-point tolerance (sums taken in another order).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 INF = 2**30          # int32 "no runnable member" / never sentinel
 NEG = -(2**30)       # identity start of the max-plus scan
+NEG_INF = -1e30      # masked attention score (not -inf: see below)
+
+
+# -- flash attention -------------------------------------------------------------
+
+
+def attention_flat_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """q (BH, Sq, hd); k/v (BHkv, Sk, hd) -> (BH, Sq, hd) in q's dtype.
+
+    Exact softmax attention in float32; query row ``b`` reads kv row
+    ``b // q_per_kv``.  Causal is aligned top-left (key j is visible to
+    query i when j <= i, also when Sq != Sk); a window keeps keys with
+    j > i - window.  Masked scores are ``NEG_INF`` and their
+    probabilities are zeroed after the softmax, so a row with no
+    visible key gives 0, as the kernels do (``repro.kernels.ref``'s
+    oracle would give the mean of v there; no test shape has such a
+    row)."""
+    bh, sq, hd = q.shape
+    bhkv, sk, _ = k.shape
+    qpk = bh // bhkv
+    k = k.repeat_interleave(qpk, dim=0)
+    v = v.repeat_interleave(qpk, dim=0)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.where(mask[None], torch.softmax(s, dim=-1), 0.0)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+# -- decode attention -------------------------------------------------------------
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """q (B, H, hd); caches (B, S, Hkv, hd); lengths (B,) int32 valid
+    prefixes -> (B, H, hd) in q's dtype.  Query head h reads kv head
+    h // q_per_kv; a row with length <= 0 gives 0, as the kernels do."""
+    b, h, hd = q.shape
+    _, s, hkv, _ = k_cache.shape
+    qpk = h // hkv
+    k = k_cache.repeat_interleave(qpk, dim=2)           # (B, S, H, hd)
+    v = v_cache.repeat_interleave(qpk, dim=2)
+    scale = 1.0 / math.sqrt(hd)
+    sc = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * scale
+    valid = (torch.arange(s, device=q.device)[None, None, :]
+             < lengths.to(q.device)[:, None, None])
+    sc = torch.where(valid, sc, NEG_INF)
+    p = torch.where(valid, torch.softmax(sc, dim=-1), 0.0)
+    return torch.einsum("bhs,bshd->bhd", p, v.float()).to(q.dtype)
 
 
 # -- minskew (scheduler hot spot) -----------------------------------------------

@@ -1,0 +1,191 @@
+"""Common model-definition machinery, PyTorch port of ``repro.models.common``.
+
+Parameters are plain nested dicts of tensors with the JAX package's
+tree: per-layer parameters are stacked with a leading ``L`` dimension
+(``params["layers"]["wq"]`` is ``(L, d, H, hd)``), so a JAX parameter
+tree crosses to the port leaf for leaf (``repro_torch.models.convert``)
+and both packages compute the same function.  A Python loop over the
+leading dimension stands in for ``lax.scan``; remat is a training
+concern and is not ported with serving.
+
+Every function keeps the JAX arithmetic: norms, RoPE and the SiLU run
+in float32 and cast back to the input's dtype.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | xlstm | rglru | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None   # default: d_model // n_heads
+    rope_theta: float = 10_000.0
+    qk_norm: bool = False
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # --- recurrentgemma / hybrid ---
+    window: int = 0                  # sliding local-attention window (0 = full)
+    lru_width: int = 0
+    attn_every: int = 0              # 1 attention block per `attn_every` blocks
+    # --- xlstm ---
+    slstm_every: int = 0             # 1 sLSTM block per `slstm_every` blocks
+    mlstm_proj_factor: float = 2.0
+    slstm_ff_factor: float = 4.0 / 3.0
+    # --- encoder-decoder ---
+    n_enc_layers: int = 0            # if >0, family == encdec
+    # --- multimodal frontend stubs ---
+    frontend: str = ""               # "" | "patch" | "audio"
+    frontend_dim: int = 0            # raw embedding dim provided by the stub
+    n_frontend_tokens: int = 0       # tokens contributed by the frontend
+    # --- numerics ---
+    dtype: Any = torch.bfloat16
+    # --- training-time knobs (overridable per shape) ---
+    remat: bool = True
+    scan_layers: bool = True
+    # --- optimization knobs of the JAX package (mesh code; the port's
+    # dense transformer raises on tp_attention and sp_decode) ---
+    tp_attention: bool = False
+    sp_decode: bool = False
+    gather_weights_once: bool = False
+    remat_policy: str = "nothing"
+    causal_slice: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def n_params(self) -> int:
+        """Parameter count, derived from the parameter shapes (no alloc)."""
+        from repro_torch.models import registry
+
+        def count(tree) -> int:
+            if isinstance(tree, dict):
+                return sum(count(v) for v in tree.values())
+            return math.prod(tree)
+
+        return int(count(registry.param_specs(self)))
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(generator: torch.Generator, shape, dtype, in_axis=0,
+               device=None) -> torch.Tensor:
+    """Normal(0, 1/fan_in) in float32, cast to ``dtype``; ``in_axis`` is
+    an axis or a tuple of axes whose sizes multiply to the fan-in."""
+    fan_in = shape[in_axis] if isinstance(in_axis, int) else math.prod(
+        shape[a] for a in in_axis)
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * scale).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype,
+               device=None) -> torch.Tensor:
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def head_rms_norm(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """QK-norm: RMS over the head_dim of a (..., H, hd) tensor."""
+    return rms_norm(x, scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,).  Half-split rotation
+    (the first and second halves of hd pair up), in float32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)      # (hd/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs           # (B,S,hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          z_loss: float = 1e-4) -> torch.Tensor:
+    """logits (..., V) any float dtype; labels (...) int. Returns the
+    mean loss (float32)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss.mean()

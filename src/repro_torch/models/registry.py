@@ -1,0 +1,69 @@
+"""Family dispatch, PyTorch port of ``repro.models.registry``: every
+architecture exposes one uniform interface.
+
+Only the ``dense`` family is ported; ``rglru`` and ``xlstm`` wait for
+ROADMAP A10, ``moe``, ``encdec`` and ``vlm`` for A11.  The sharding
+metadata (``logical_axes``, ``cache_axes``) waits for the mesh code
+(A8).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import ModelConfig
+
+_ROADMAP = {"rglru": "A10", "xlstm": "A10", "moe": "A11", "encdec": "A11",
+            "vlm": "A11"}
+
+
+def _module(cfg: ModelConfig):
+    fam = cfg.family
+    if fam == "dense":
+        from repro_torch.models import transformer
+        return transformer
+    if fam in _ROADMAP:
+        raise NotImplementedError(
+            f"{cfg.name}: the {fam!r} family is not ported yet "
+            f"(ROADMAP {_ROADMAP[fam]})")
+    raise ValueError(f"unknown family: {fam}")
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, *, device=None):
+    """Random parameters on ``device`` (``None`` means CUDA and raises
+    without it), drawn from ``generator``, which lives there too."""
+    return _module(cfg).init(cfg, generator, device=device)
+
+
+def param_specs(cfg: ModelConfig):
+    return _module(cfg).param_specs(cfg)
+
+
+def forward(cfg: ModelConfig, params, tokens, frontend_embeds=None,
+            return_aux: bool = False):
+    return _module(cfg).forward(cfg, params, tokens,
+                                frontend_embeds=frontend_embeds,
+                                return_aux=return_aux)
+
+
+def prefill(cfg: ModelConfig, params, tokens, frontend_embeds=None,
+            max_len=None):
+    return _module(cfg).prefill(cfg, params, tokens,
+                                frontend_embeds=frontend_embeds,
+                                max_len=max_len)
+
+
+def decode_step(cfg: ModelConfig, params, token, cache):
+    return _module(cfg).decode_step(cfg, params, token, cache)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    return _module(cfg).cache_specs(cfg, batch, max_len)
+
+
+def has_frontend(cfg: ModelConfig) -> bool:
+    return bool(cfg.frontend)
+
+
+def sub_quadratic(cfg: ModelConfig) -> bool:
+    """True when decode state is O(1)/windowed in context length."""
+    return cfg.family in ("xlstm", "rglru")

@@ -1,0 +1,254 @@
+"""Dense decoder-only transformer, PyTorch port of ``repro.models.transformer``.
+
+Covers the dense configs (qwen3-4b with QK-norm, phi3-medium-14b,
+glm4-9b, deepseek-coder-33b).  Layer: pre-RMSNorm -> GQA attention
+(RoPE, optional QK-norm, optional sliding window) -> residual ->
+pre-RMSNorm -> SwiGLU MLP -> residual.  Attention goes through the
+kernels (:mod:`repro_torch.models.attention`).
+
+Not ported here: MoE layers (``n_experts > 0``) and multimodal frontends
+(ROADMAP A11), and the mesh options ``tp_attention`` and ``sp_decode``
+(ROADMAP A8); each raises ``NotImplementedError``.
+
+Parameters keep the JAX tree, layers stacked on a leading ``L``
+dimension; the KV cache is ``{"k", "v": (L, B, max_len, Hkv, hd),
+"len": int}``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.engine_torch import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
+from repro_torch.models.common import ModelConfig
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise on what this port of the transformer does not cover."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A11)")
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
+            f"(ROADMAP A11)")
+    if cfg.tp_attention or cfg.sp_decode:
+        raise NotImplementedError(
+            f"{cfg.name}: tp_attention and sp_decode are mesh options; the "
+            f"port has no mesh yet (ROADMAP A8)")
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def _layer_specs(cfg: ModelConfig) -> dict:
+    d, h, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                         cfg.d_ff)
+    p = {
+        "ln1": (d,),
+        "wq": (d, h, hd),
+        "wk": (d, hkv, hd),
+        "wv": (d, hkv, hd),
+        "wo": (h, hd, d),
+        "ln2": (d,),
+        "mlp": {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)},
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = (hd,)
+        p["k_norm"] = (hd,)
+    return p
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree with a shape tuple at every leaf (no alloc)."""
+    check_dense(cfg)
+
+    def stack(tree):
+        return {k: stack(v) if isinstance(v, dict) else (cfg.n_layers,) + v
+                for k, v in tree.items()}
+
+    return {
+        "embed": (cfg.vocab, cfg.d_model),
+        "layers": stack(_layer_specs(cfg)),
+        "final_norm": (cfg.d_model,),
+        "lm_head": (cfg.d_model, cfg.vocab),
+    }
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, *,
+         device=None) -> dict:
+    """Random parameters at the config's shapes and dtype, with the JAX
+    package's scales: norms 0, embeddings N(0, 0.02), projections
+    N(0, 1/fan_in).  ``generator`` must live on ``device`` (``None``
+    means CUDA and raises without it)."""
+    check_dense(cfg)
+    dev = resolve_device(device, "the model")
+    dt, n = cfg.dtype, cfg.n_layers
+
+    def dense(shape, in_axis=1):
+        return cm.dense_init(generator, (n,) + shape, dt, in_axis,
+                             device=dev)
+
+    d, h, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                         cfg.d_ff)
+    layers = {
+        "ln1": torch.zeros((n, d), dtype=dt, device=dev),
+        "wq": dense((d, h, hd)),
+        "wk": dense((d, hkv, hd)),
+        "wv": dense((d, hkv, hd)),
+        "wo": dense((h, hd, d), in_axis=(1, 2)),
+        "ln2": torch.zeros((n, d), dtype=dt, device=dev),
+        "mlp": {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
+                "w_down": dense((ff, d))},
+    }
+    if cfg.qk_norm:
+        layers["q_norm"] = torch.zeros((n, hd), dtype=dt, device=dev)
+        layers["k_norm"] = torch.zeros((n, hd), dtype=dt, device=dev)
+    return {
+        "embed": cm.embed_init(generator, (cfg.vocab, d), dt, device=dev),
+        "layers": layers,
+        "final_norm": torch.zeros((d,), dtype=dt, device=dev),
+        "lm_head": cm.dense_init(generator, (d, cfg.vocab), dt, device=dev),
+    }
+
+
+def layer(params: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views into the stacked tensors."""
+    def pick(tree):
+        return {k: pick(v) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+    return pick(params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+         positions: torch.Tensor):
+    """Pre-norm, projections, QK-norm and RoPE -> q (B,S,H,hd), k and v
+    (B,S,Hkv,hd)."""
+    b, s, d = x.shape
+    h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q = (h @ lp["wq"].reshape(d, -1)).view(b, s, cfg.n_heads, cfg.hd)
+    k = (h @ lp["wk"].reshape(d, -1)).view(b, s, cfg.n_kv_heads, cfg.hd)
+    v = (h @ lp["wv"].reshape(d, -1)).view(b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = cm.head_rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = cm.head_rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(lp: dict, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    b, s, h, hd = o.shape
+    return x + o.reshape(b, s, h * hd) @ lp["wo"].reshape(h * hd, -1)
+
+
+def _ffn_block(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + cm.mlp_forward(lp["mlp"], h)
+
+
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()
+
+
+# ---------------------------------------------------------------------------
+# Forward (scoring)
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            frontend_embeds=None, return_aux: bool = False):
+    """tokens (B, S) -> logits (B, S, V) float32 [+ aux loss, 0 for a
+    dense model]."""
+    check_dense(cfg)
+    x = params["embed"][tokens]
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        lp = layer(params, i)
+        q, k, v = _qkv(cfg, lp, x, positions)
+        o = attn.multi_head_attention(q, k, v, causal=True,
+                                      window=cfg.window)
+        x = _ffn_block(cfg, lp, _out_proj(lp, x, o))
+    logits = _logits(cfg, params, x)
+    if return_aux:
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            frontend_embeds=None,
+            max_len: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
+    """Returns (last-position logits (B,V) float32, kv cache).
+
+    The cache ``{"k": (L,B,max_len,Hkv,hd), "v": ..., "len": S}`` is
+    allocated once at ``max_len`` (default S + 64, at least S) and
+    filled layer by layer; positions from S on are zero until decode
+    writes them."""
+    check_dense(cfg)
+    x = params["embed"][tokens]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=x.device)
+    cap = max(max_len if max_len is not None else s + 64, s)
+    shape = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.hd)
+    ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = layer(params, i)
+        q, k, v = _qkv(cfg, lp, x, positions)
+        ks[i, :, :s] = k
+        vs[i, :, :s] = v
+        o = attn.multi_head_attention(q, k, v, causal=True,
+                                      window=cfg.window)
+        x = _ffn_block(cfg, lp, _out_proj(lp, x, o))
+    logits = _logits(cfg, params, x[:, -1])
+    return logits, {"k": ks, "v": vs, "len": s}
+
+
+def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
+                cache: dict) -> Tuple[torch.Tensor, dict]:
+    """token (B,) int; cache from ``prefill``.  One-token step.
+
+    Returns (logits (B,V) float32, cache).  The new token's K/V are
+    written **in place** into ``cache["k"]``/``cache["v"]`` at position
+    ``cache["len"]`` (the JAX version builds new arrays), and the
+    returned dict shares those tensors with ``len + 1``."""
+    check_dense(cfg)
+    n = int(cache["len"])
+    ks, vs = cache["k"], cache["v"]
+    if n >= ks.shape[2]:
+        raise ValueError(f"decode_step: the cache holds {ks.shape[2]} "
+                         f"positions and all are used")
+    x = params["embed"][token[:, None]]                      # (B,1,D)
+    positions = torch.arange(n, n + 1, device=x.device)
+    lengths = torch.full((x.shape[0],), n + 1, dtype=torch.int32,
+                         device=x.device)
+    for i in range(cfg.n_layers):
+        lp = layer(params, i)
+        q, k, v = _qkv(cfg, lp, x, positions)
+        ks[i, :, n] = k[:, 0]
+        vs[i, :, n] = v[:, 0]
+        o = attn.decode_attention(q, ks[i], vs[i], lengths)
+        x = _ffn_block(cfg, lp, _out_proj(lp, x, o))
+    logits = _logits(cfg, params, x[:, 0])
+    return logits, {"k": ks, "v": vs, "len": n + 1}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    shp = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": shp, "v": shp, "len": ()}

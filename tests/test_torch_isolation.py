@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``,
 the port runs with both blocked from import, and the vectorized engine
-never lands on the CPU unless the caller asks for it."""
+and the serving path never land on the CPU unless the caller asks for
+it."""
 import ast
 import os
 import pathlib
@@ -33,9 +34,12 @@ def test_port_files_exist():
              if "src" in p.parts}
     for mod in ("core/engine_torch.py", "sim/vectorized.py",
                 "kernels/minskew.py", "kernels/hub_route.py",
-                "kernels/ref.py", "kernels/ops.py", "kernels/_build.py"):
+                "kernels/ref.py", "kernels/ops.py", "kernels/_build.py",
+                "kernels/flash_attention.py", "kernels/decode_attention.py",
+                "models/transformer.py", "serve/loop.py", "sim/live.py"):
         assert f"repro_torch/{mod}" in names, mod
-    for src in ("minskew.cu", "hub_route.cu"):
+    for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",
+                "decode_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file()
 
@@ -65,6 +69,16 @@ def test_port_runs_with_jax_and_repro_blocked():
         rep = Simulation(Topology.racks(2, 2), wl).run(
             engine="vectorized", device="cpu", verify=True)
         assert rep.status == "ok" and rep.tier == "exact", rep.status
+        import torch
+        from repro_torch import configs
+        from repro_torch.models import registry
+        from repro_torch.serve.loop import BatchServer
+        cfg = configs.get_smoke("qwen3_4b")
+        params = registry.init(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        out = BatchServer(cfg, params, max_new_tokens=3,
+                          device="cpu").generate([[1, 2, 3, 4]])
+        assert out["tokens"].shape == (1, 3), out["tokens"].shape
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
@@ -92,3 +106,21 @@ def test_no_device_without_cuda_raises(monkeypatch):
         make().sweep([Scenario("a")])
     # the pure-Python engines take no device
     assert make().run(engine="single").status == "ok"
+
+
+def test_serving_path_lands_on_cuda_unless_asked(monkeypatch):
+    """``registry.init`` and ``BatchServer`` with no device named and no
+    CUDA refuse; with ``device="cpu"`` they run on the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.serve.loop import BatchServer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke("qwen3_4b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.init(cfg, torch.Generator())
+    params = registry.init(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert params["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchServer(cfg, params)
+    assert BatchServer(cfg, params, device="cpu").device.type == "cpu"
