@@ -10,7 +10,7 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — the four CUDA kernels compiled from
+2. build — the six CUDA kernels compiled from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
 3. minskew — kernel vs plain version on the card, bit-equal, timed;
 4. hub_route — the same;
@@ -28,20 +28,38 @@ One JSON line per phase:
 8. flash_attention — kernel vs plain version at the serving path's
    prefill shape (B=4, S=1024, H=32, Hkv=8, hd=128, causal), at S=4096
    and at the edge shapes of tests/test_kernels.py, bfloat16 and
-   float32, timed beside ``scaled_dot_product_attention``;
+   float32, timed beside ``scaled_dot_product_attention`` (with a
+   boolean band mask where a window applies), and at recurrentgemma_9b's
+   prefill shape (B=4, S=3,072, H=16, Hkv=1, hd=256, window 2,048);
 9. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
-   hd=128, S=1056, ragged lengths), at S=8192 and the edge shapes;
-10. serve — the serving path: ``BatchServer`` on full-width, full-depth
+   hd=128, S=1056, ragged lengths), at S=8192, at recurrentgemma's
+   ring buffer (S=2,048, MQA, hd 256) and the edge shapes;
+10. rglru_scan — kernel vs plain version at recurrentgemma's prefill
+   shape (B=4, S=3,072, W=4,096) and tests/test_kernels.py's shapes
+   (padded S, h0), float32;
+11. mlstm_chunkwise — kernel vs plain version at xlstm's prefill shape
+   (BH=16, S=1,024, hd=1,024), bfloat16 and float32, and edge shapes (S
+   not a multiple of the chunk, an initial carry, small hd), with the
+   final (C, n);
+12. serve — the serving path: ``BatchServer`` on full-width, full-depth
    qwen3_4b in bfloat16 (random weights from a seed), 4 prompts of 1,024
    tokens, 32 new tokens; one warm-up ``generate`` and 3 timed ones,
    each with the kernel counters set to 0 just before and read just
    after; then one profiled ``generate`` and profiled decode steps;
-11. serve_parity — the same entry point at full width, 2 layers,
+13. serve_parity — the same entry point at full width, 2 layers,
    float32: the card's logits and greedy tokens against the CPU run of
    the same parameters (the plain versions);
-12. live_serve — ``record_live_serve`` on the card (smoke config), its
+14. serve_rglru, serve_xlstm — the same serving phase on full-width,
+   full-depth recurrentgemma_9b (4 prompts of 3,072 tokens, past the
+   2,048 window) and xlstm_1_3b (4 prompts of 1,024 tokens), 32 new
+   tokens each, every kernel's launches per ``generate`` checked;
+15. serve_parity_rglru, serve_parity_xlstm — card against CPU at full
+   width, float32, cut depth: recurrentgemma (rec, rec, attn) with
+   prompts of 2,080 tokens, which wrap the window; xlstm one mLSTM and
+   one sLSTM block with prompts of 200 tokens, which the kernel pads;
+16. live_serve — ``record_live_serve`` on the card (smoke config), its
    trace replayed bit-identically under the barrier and async engines;
-13. kernels — one object per kernel: launches on its path, max error
+17. kernels — one object per kernel: launches on its paths, max error
    against the plain version, times, the card's bound and the library
    call's time.
 
@@ -77,7 +95,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: kernel-vs-plain tolerance on the card, absolute, per dtype: bfloat16
 #: outputs are rounded once to bfloat16 (2^-8 relative on values of
-#: order 1); float32 differ only by the order of the float32 sums
+#: order 1); float32 differ only by the order of the float32 sums.  The
+#: recurrences hold it relative to max(1, largest |plain value|).
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 #: timed calls per measurement, after warm-up
 ITERS = 30
@@ -87,8 +106,15 @@ CORE_FIELDS = ("status", "n_hosts", "vtime_ns", "messages", "bytes",
                "tasks", "progress", "cells", "live")
 
 
+#: the script's start on the host clock
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the host time since the script started,
+    so consecutive lines show where the run's wall time goes."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - T0,
+                      **fields}), flush=True)
 
 
 def timed_ms(torch, fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
@@ -571,6 +597,8 @@ DECODE_KERNELS = ("decode_kernel",)
 #: edge shapes (GQA, padded tail, window, cross attention, hd 128)
 FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                ("s4096", 4, 32, 8, 4096, 4096, 128, True, 0, True),
+               ("rglru_prefill", 4, 16, 1, 3072, 3072, 256, True, 2048,
+                True),
                ("gqa", 1, 4, 2, 128, 128, 64, True, 0, False),
                ("padded", 1, 8, 2, 96, 96, 32, True, 0, False),
                ("window64", 1, 2, 1, 256, 256, 64, True, 64, False),
@@ -581,17 +609,37 @@ FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
 #: cache, tests/test_kernels.py's decode shapes and a length-0 row
 DECODE_CASES = [("main", 4, 32, 8, 1056, 128, [1, 300, 777, 1056], True),
                 ("s8192", 4, 32, 8, 8192, 128, [1, 2048, 5000, 8192], True),
+                ("rglru_ring", 4, 16, 1, 2048, 256, [2048] * 4, True),
+                ("rglru_ring_partial", 4, 16, 1, 2048, 256,
+                 [1, 700, 1500, 2048], False),
                 ("mha", 2, 4, 4, 256, 64, None, False),
                 ("gqa4", 2, 8, 2, 256, 64, None, False),
                 ("mqa_padded", 3, 4, 1, 300, 32, None, False),
                 ("hd128", 1, 16, 8, 512, 128, None, False),
                 ("empty_row", 3, 4, 2, 100, 32, [0, 1, 100], False)]
-#: the serving path: (arch, batch, prompt length, new tokens), full
-#: width and depth in bfloat16
+#: the serving paths: (arch, batch, prompt length, new tokens), full
+#: width and depth in bfloat16.  recurrentgemma's prompt is longer than
+#: its 2,048 window, so the window binds in flash_attention, prefill
+#: rolls the ring buffer and decode writes over old slots.
 SERVE = ("qwen3_4b", 4, 1024, 32)
-#: the parity phase: (layers, batch, prompt length, new tokens) at the
-#: arch's full width in float32
-PARITY = (2, 2, 128, 8)
+SERVE_RGLRU = ("recurrentgemma_9b", 4, 3072, 32)
+SERVE_XLSTM = ("xlstm_1_3b", 4, 1024, 32)
+#: the parity phases: (layers, batch, prompt length, new tokens, config
+#: overrides) at the arch's full width in float32
+PARITY = (2, 2, 128, 8, {})
+PARITY_RGLRU = (3, 2, 2080, 4, {})
+PARITY_XLSTM = (2, 2, 200, 8, {"slstm_every": 2})
+#: (B, S, W, with h0, timed): recurrentgemma's prefill shape and
+#: tests/test_kernels.py's rglru shapes
+RGLRU_CASES = [(4, 3072, 4096, False, True), (2, 128, 64, False, False),
+               (2, 128, 64, True, False), (1, 300, 32, True, False),
+               (3, 64, 128, False, False), (2, 16, 8, True, False)]
+#: (BH, S, hd, with an initial carry, timed): xlstm's prefill shape
+#: (B=4 x H=4 heads of hd 1,024), tests/test_kernels.py's mlstm shapes,
+#: and S not a multiple of the kernel's chunk
+MLSTM_CASES = [(16, 1024, 1024, False, True), (2, 128, 32, False, False),
+               (4, 256, 64, False, False), (1, 64, 128, False, False),
+               (2, 200, 64, True, False), (3, 130, 96, True, False)]
 
 
 def sdpa(q, k, v, **kw):
@@ -626,16 +674,36 @@ def _err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def _hold(name: str, err: float, dtype: str, where) -> None:
-    if not err <= ATTN_TOL[dtype]:          # also catches NaN
+def _hold(name: str, err: float, dtype: str, where,
+          scale: float = 1.0) -> None:
+    """``err`` within ``ATTN_TOL`` x max(1, ``scale``), the largest
+    |plain value| for the recurrences (also catches NaN)."""
+    if not err <= ATTN_TOL[dtype] * max(1.0, scale):
         raise AssertionError(f"{name} kernel != plain at {where} "
-                             f"({dtype}): max abs err {err}")
+                             f"({dtype}): max abs err {err} (scale {scale})")
+
+
+def _timings(torch, kern, plain, names, iters: int = ITERS) -> dict:
+    return {"kernel_ms": timed_ms(torch, kern, iters),
+            "kernel_batch_ms": batch_ms(torch, kern),
+            **dict(zip(("kernel_device_ms", "kernel_device_records"),
+                       device_ms(torch, kern, names))),
+            "plain_ms": timed_ms(torch, plain, iters),
+            "plain_batch_ms": batch_ms(torch, plain),
+            "plain_device_ms": device_ms(torch, plain)[0]}
+
+
+def _library(torch, lib, iters: int = ITERS) -> dict:
+    return {"library_ms": timed_ms(torch, lib, iters),
+            "library_batch_ms": batch_ms(torch, lib),
+            "library_device_ms": device_ms(torch, lib)[0]}
 
 
 def phase_flash_attention(torch, np, dev):
     """Kernel vs plain version (``attention_flat_plain``) on the card;
     times at the serving shapes beside ``scaled_dot_product_attention``
-    (timed here only: the port never calls it)."""
+    (timed here only: the port never calls it; a window becomes a
+    boolean band mask, since SDPA has no window argument)."""
     from repro_torch.kernels.flash_attention import flash_attention_flat
     from repro_torch.kernels.ref import attention_flat_plain
     g = torch.Generator(device=dev).manual_seed(2)
@@ -665,7 +733,13 @@ def phase_flash_attention(torch, np, dev):
             plain = lambda: attention_flat_plain(q, k, v, causal=causal,
                                                  window=window)
             q4, k4, v4 = (t.view(b, -1, t.shape[1], hd) for t in (q, k, v))
-            lib = sdpa(q4, k4, v4, is_causal=causal)
+            if window > 0:                  # SDPA has no window argument
+                qpos = torch.arange(sq, device=dev)[:, None]
+                kpos = torch.arange(sk, device=dev)[None, :]
+                band = (kpos > qpos - window) & ((kpos <= qpos) | (not causal))
+                lib = sdpa(q4, k4, v4, attn_mask=band)
+            else:
+                lib = sdpa(q4, k4, v4, is_causal=causal)
             elt = q.element_size()
             n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
             flops = 4 * hd * b * h * visible_pairs(sq, sk, causal, window)
@@ -673,16 +747,8 @@ def phase_flash_attention(torch, np, dev):
             main.append({
                 "case": name, "dtype": dname, "B": b, "H": h, "Hkv": hkv,
                 "S": sq, "hd": hd, "max_abs_err": err,
-                "kernel_ms": timed_ms(torch, kern, iters),
-                "kernel_batch_ms": batch_ms(torch, kern),
-                **dict(zip(("kernel_device_ms", "kernel_device_records"),
-                           device_ms(torch, kern, FLASH_KERNELS))),
-                "plain_ms": timed_ms(torch, plain, iters),
-                "plain_batch_ms": batch_ms(torch, plain),
-                "plain_device_ms": device_ms(torch, plain)[0],
-                "library_ms": timed_ms(torch, lib, iters),
-                "library_batch_ms": batch_ms(torch, lib),
-                "library_device_ms": device_ms(torch, lib)[0],
+                **_timings(torch, kern, plain, FLASH_KERNELS, iters),
+                **_library(torch, lib, iters),
                 "bound_ms": bound, "bound_by": by, "flops": flops,
                 "bytes": n_bytes})
     emit("flash_attention", tolerance=ATTN_TOL, shapes=main, edge=edge)
@@ -735,18 +801,113 @@ def phase_decode_attention(torch, np, dev):
             main.append({
                 "case": name, "dtype": dname, "B": b, "H": h, "Hkv": hkv,
                 "S": s, "hd": hd, "lengths": lens, "max_abs_err": err,
-                "kernel_ms": timed_ms(torch, kern),
-                "kernel_batch_ms": batch_ms(torch, kern),
-                **dict(zip(("kernel_device_ms", "kernel_device_records"),
-                           device_ms(torch, kern, DECODE_KERNELS))),
-                "plain_ms": timed_ms(torch, plain),
-                "plain_batch_ms": batch_ms(torch, plain),
-                "plain_device_ms": device_ms(torch, plain)[0],
-                "library_ms": timed_ms(torch, lib),
-                "library_batch_ms": batch_ms(torch, lib),
-                "library_device_ms": device_ms(torch, lib)[0],
+                **_timings(torch, kern, plain, DECODE_KERNELS),
+                **_library(torch, lib),
                 "bound_ms": bound, "bound_by": by, "bytes": n_bytes})
     emit("decode_attention", tolerance=ATTN_TOL, shapes=main, edge=edge)
+    return main[0]
+
+
+RGLRU_KERNELS = ("rglru_kernel",)
+MLSTM_KERNELS = ("scores_kernel", "carry_kernel")
+
+
+def phase_rglru_scan(torch, np, dev):
+    """Kernel vs plain version (``rglru_plain``, a loop over S) on the
+    card, float32.  No single PyTorch call computes a linear recurrence,
+    so there is no library time."""
+    from repro_torch.kernels.ref import rglru_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    g = torch.Generator(device=dev).manual_seed(6)
+    main, edge = [], []
+    for b, s, w, with_h0, timed in RGLRU_CASES:
+        log_a = -torch.rand(b, s, w, generator=g, device=dev) * 0.3
+        bv = torch.randn(b, s, w, generator=g, device=dev)
+        h0 = (torch.randn(b, w, generator=g, device=dev) if with_h0
+              else None)
+        got = rglru_scan(log_a, bv, h0)
+        want = rglru_plain(log_a, bv, h0)
+        torch.cuda.synchronize()
+        err, scale = _err(got, want), float(want.abs().max())
+        _hold("rglru_scan", err, "float32", (b, s, w, with_h0), scale)
+        case = {"B": b, "S": s, "W": w, "h0": with_h0, "max_abs_err": err,
+                "scale": scale}
+        if not timed:
+            edge.append(case)
+            continue
+        del got, want
+        n_bytes = 4 * (3 * b * s * w + (b * w if with_h0 else 0))
+        bound, by = attn_bound_ms(n_bytes, 2 * b * s * w, "float32")
+        main.append({**case, **_timings(
+            torch, lambda: rglru_scan(log_a, bv, h0),
+            lambda: rglru_plain(log_a, bv, h0), RGLRU_KERNELS, 10),
+            "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+            "library_ms": None})
+    emit("rglru_scan", tolerance=ATTN_TOL["float32"], shapes=main,
+         edge=edge)
+    return main[0]
+
+
+def mlstm_work(bh: int, s: int, hd: int, elt: int, carry_in: bool):
+    """(bytes, FLOPs) of one chunkwise mLSTM call: q, k, v read and h
+    written in the model dtype, the gates read, the final C and n
+    written (and the initial ones read); 4 hd^2 + 4 L hd FLOPs per
+    token and head (q C and the C update, the L x L scores and S v)."""
+    from repro_torch.kernels.mlstm_kernel import CHUNK
+    carry = 4 * bh * (hd * hd + hd)
+    n_bytes = (elt * 4 * bh * s * hd + 4 * 2 * bh * s
+               + carry * (2 if carry_in else 1))
+    return n_bytes, bh * s * (4 * hd * hd + 4 * CHUNK * hd)
+
+
+def phase_mlstm_chunkwise(torch, np, dev):
+    """Kernel vs plain version (``mlstm_flat_plain``: the same tail
+    padding, the chunkwise form at the kernel's chunk) on the card, h
+    and the final C and n.  No single PyTorch call computes a chunkwise
+    mLSTM, so there is no library time."""
+    from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise
+    from repro_torch.kernels.mlstm_kernel import mlstm_flat_plain
+    g = torch.Generator(device=dev).manual_seed(7)
+    main, edge = [], []
+    for dt in (torch.bfloat16, torch.float32):
+        dname = _dname(torch, dt)
+        for bh, s, hd, carry_in, timed in MLSTM_CASES:
+            q, k, v = (torch.randn(bh, s, hd, generator=g, device=dev)
+                       .mul(0.3).to(dt) for _ in range(3))
+            ig = torch.randn(bh, s, generator=g, device=dev)
+            fg = torch.randn(bh, s, generator=g, device=dev) + 2.0
+            c0 = n0 = None
+            if carry_in:
+                c0 = torch.randn(bh, hd, hd, generator=g, device=dev) * 0.1
+                n0 = torch.randn(bh, hd, generator=g, device=dev) * 0.1
+            h, (c, n) = mlstm_chunkwise(q, k, v, ig, fg, c0, n0)
+            hw, (cw, nw) = mlstm_flat_plain(q, k, v, ig, fg, c0, n0)
+            torch.cuda.synchronize()
+            errs = {}
+            for part, got, want, pdt in (("h", h, hw, dname),
+                                         ("C", c, cw, "float32"),
+                                         ("n", n, nw, "float32")):
+                err, scale = _err(got, want), float(want.abs().max())
+                _hold("mlstm_chunkwise", err, pdt,
+                      (bh, s, hd, carry_in, part), scale)
+                errs[part] = err
+            case = {"dtype": dname, "BH": bh, "S": s, "hd": hd,
+                    "carry_in": carry_in, "max_abs_err": errs["h"],
+                    "max_abs_err_C": errs["C"], "max_abs_err_n": errs["n"]}
+            if not timed:
+                edge.append(case)
+                continue
+            del h, c, n, hw, cw, nw
+            n_bytes, flops = mlstm_work(bh, s, hd, q.element_size(),
+                                        carry_in)
+            bound, by = attn_bound_ms(n_bytes, flops, "float32")
+            main.append({**case, **_timings(
+                torch, lambda: mlstm_chunkwise(q, k, v, ig, fg, c0, n0),
+                lambda: mlstm_flat_plain(q, k, v, ig, fg, c0, n0),
+                MLSTM_KERNELS, 10),
+                "bound_ms": bound, "bound_by": by, "flops": flops,
+                "bytes": n_bytes, "library_ms": None})
+    emit("mlstm_chunkwise", tolerance=ATTN_TOL, shapes=main, edge=edge)
     return main[0]
 
 
@@ -758,17 +919,44 @@ def serve_prompts(np, vocab: int, b: int, s: int, seed: int):
         np.int32)
 
 
-def _kernel_counts():
+def _serving_wrappers() -> dict:
+    """The serving paths' kernel wrappers, by kernel name."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention_flat
-    return {"flash_attention": flash_attention_flat.launches,
-            "decode_attention": decode_attention.launches}
+    from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    return {"flash_attention": flash_attention_flat,
+            "decode_attention": decode_attention,
+            "rglru_scan": rglru_scan, "mlstm_chunkwise": mlstm_chunkwise}
+
+
+def _kernel_counts():
+    return {k: w.launches for k, w in _serving_wrappers().items()}
 
 
 def _zero_kernel_counts():
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention_flat
-    flash_attention_flat.launches = decode_attention.launches = 0
+    for w in _serving_wrappers().values():
+        w.launches = 0
+
+
+def expected_launches(cfg, decode_steps: int) -> dict:
+    """Each serving kernel's launches in one ``generate``: attention
+    once per attention layer in prefill and per attention layer and
+    decode step; the recurrences once per recurrent layer in prefill
+    (decode steps them in plain tensor ops)."""
+    n_attn = n_rec = n_mlstm = 0
+    if cfg.family == "dense":
+        n_attn = cfg.n_layers
+    elif cfg.family == "rglru":
+        from repro_torch.models.rglru import layer_kinds
+        n_attn = layer_kinds(cfg).count("attn")
+        n_rec = cfg.n_layers - n_attn
+    elif cfg.family == "xlstm":
+        from repro_torch.models.xlstm import is_slstm
+        n_mlstm = sum(not is_slstm(cfg, i) for i in range(cfg.n_layers))
+    return {"flash_attention": n_attn,
+            "decode_attention": n_attn * decode_steps,
+            "rglru_scan": n_rec, "mlstm_chunkwise": n_mlstm}
 
 
 def _device_kernels(prof, launched: dict):
@@ -792,11 +980,19 @@ def _device_kernels(prof, launched: dict):
     return us, seen
 
 
+#: the device kernels each serving wrapper launches once per call
+DEVICE_KERNELS = {"flash_attention": FLASH_KERNELS,
+                  "decode_attention": DECODE_KERNELS,
+                  "rglru_scan": RGLRU_KERNELS,
+                  "mlstm_chunkwise": MLSTM_KERNELS}
+
+
 def _launched() -> dict:
-    """The port's attention kernels' launch counters, by kernel name."""
+    """The port's serving kernels' launch counters, by device kernel
+    name."""
     counts = _kernel_counts()
-    return {"flash_kernel": counts["flash_attention"],
-            "decode_kernel": counts["decode_attention"]}
+    return {name: counts[w] for w, names in DEVICE_KERNELS.items()
+            for name in names}
 
 
 def _device_ops(prof) -> int:
@@ -807,17 +1003,20 @@ def _device_ops(prof) -> int:
                if e.device_type == DeviceType.CUDA)
 
 
-def phase_serve(torch, np, dev):
-    """The serving path at full qwen3_4b width and depth, bfloat16."""
+def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
+                seed: int = 0):
+    """A serving path at the arch's full width and depth, bfloat16:
+    ``spec`` is (arch, batch, prompt length, new tokens)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
     from repro_torch.models import registry
     from repro_torch.serve.loop import BatchServer
-    arch, batch, prompt_len, new = SERVE
+    arch, batch, prompt_len, new = spec
     cfg = configs.get(arch)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = registry.init(cfg, torch.Generator(device=dev).manual_seed(0),
+    params = registry.init(cfg, torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -826,8 +1025,8 @@ def phase_serve(torch, np, dev):
     logits, _ = srv._prefill(params, torch.from_numpy(prompts).to(dev))
     if logits.shape != (batch, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
-        raise AssertionError(f"serve: prefill logits {tuple(logits.shape)}"
-                             f" not finite")
+        raise AssertionError(f"{phase}: prefill logits "
+                             f"{tuple(logits.shape)} not finite")
     del logits
     srv.generate(prompts)                       # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -840,18 +1039,21 @@ def phase_serve(torch, np, dev):
         tok = out["tokens"]
         if (tok.shape != (batch, new) or tok.min() < 0
                 or tok.max() >= cfg.vocab):
-            raise AssertionError(f"serve: tokens {tok.shape}, range "
+            raise AssertionError(f"{phase}: tokens {tok.shape}, range "
                                  f"{tok.min()}..{tok.max()}")
-        want = {"flash_attention": cfg.n_layers,
-                "decode_attention": cfg.n_layers * st.decode_steps}
+        want = expected_launches(cfg, st.decode_steps)
         if counts != want:
-            raise AssertionError(f"serve: launches {counts}, expected {want}")
+            raise AssertionError(f"{phase}: launches {counts}, expected "
+                                 f"{want}")
         runs.append({"prefill_s": st.prefill_s, "decode_s": st.decode_s,
                      "per_token_ms": st.per_token_ms,
                      "throughput_tok_s": st.throughput_tok_s,
                      "decode_steps": st.decode_steps,
                      "tokens_out": st.tokens_out, "launches": counts})
     peak = torch.cuda.max_memory_allocated()
+    slstm = (slstm_share(torch, srv, params,
+                         torch.from_numpy(prompts).to(dev))
+             if cfg.family == "xlstm" else None)
     # one profiled generate: each kernel's share of the device time
     _zero_kernel_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -861,7 +1063,7 @@ def phase_serve(torch, np, dev):
     by_kernel, gen_seen = _device_kernels(prof, gen_launched)
     total = sum(by_kernel.values())
     share = {k: sum(us for n, us in by_kernel.items() if k in n)
-             / total for k in ("flash_kernel", "decode_kernel")}
+             / total for k in gen_launched if gen_launched[k]}
     # decode steps alone, profiled: the device's idle share and where a
     # decode step's device time goes
     _, cache = srv._prefill(params, torch.from_numpy(prompts).to(dev))
@@ -884,7 +1086,7 @@ def phase_serve(torch, np, dev):
     med = {k: statistics.median(r[k] for r in runs)
            for k in ("prefill_s", "decode_s", "per_token_ms",
                      "throughput_tok_s")}
-    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+    emit(phase, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
          n_params=cfg.n_params(), dtype="bfloat16", batch=batch,
          prompt_len=prompt_len, max_new_tokens=new, init_s=init_s, runs=runs,
          median=med, peak_memory_bytes=peak,
@@ -899,13 +1101,44 @@ def phase_serve(torch, np, dev):
          decode_kernel_launches=dec_launched,
          decode_kernel_records_seen=dec_seen,
          decode_step_device_ms_by_kernel={
-             k[:80]: us / 1e3 / n_steps for k, us in top})
+             k[:80]: us / 1e3 / n_steps for k, us in top},
+         prefill_slstm=slstm)
     return runs[0]["launches"]
 
 
-def phase_serve_parity(torch, np, dev):
-    """Full width, 2 layers, float32: the card (kernels) against the CPU
-    (plain versions) on the same parameters."""
+def slstm_share(torch, srv, params, prompts) -> dict:
+    """One prefill with ``slstm_seq`` (the sLSTM loop over S, which has
+    no kernel) timed call by call, synchronised at both ends: its
+    seconds and its share of that prefill's wall time."""
+    from repro_torch.models import xlstm
+    inner = xlstm.slstm_seq
+    spent = []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+    xlstm.slstm_seq = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv._prefill(params, prompts)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        xlstm.slstm_seq = inner
+    return {"calls": len(spent), "slstm_s": sum(spent), "prefill_s": total,
+            "share": sum(spent) / total}
+
+
+def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
+                       spec=PARITY, phase: str = "serve_parity"):
+    """Full width, cut depth, float32: the card (kernels) against the
+    CPU (plain versions) on the same parameters.  ``spec`` is (layers,
+    batch, prompt length, new tokens, config overrides)."""
     import dataclasses
 
     from repro_torch import configs
@@ -913,12 +1146,13 @@ def phase_serve_parity(torch, np, dev):
     from repro_torch.serve.loop import BatchServer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tol = 1e-3            # float32 sums of 2,560-9,728 terms in other
+    tol = 1e-3            # float32 sums of 2,560-24,576 terms in other
     #                       orders (cuBLAS vs the CPU BLAS, kernels vs
-    #                       plain attention): about 1e-5 of the logits
-    n_layers, batch, prompt_len, new = PARITY
-    cfg = dataclasses.replace(configs.get(SERVE[0]), n_layers=n_layers,
-                              dtype=torch.float32)
+    #                       plain versions): about 1e-5 of the logits
+    n_layers, batch, prompt_len, new, overrides = spec
+    cfg = dataclasses.replace(configs.get(arch), n_layers=n_layers,
+                              dtype=torch.float32, **overrides)
+    torch.cuda.empty_cache()
     gpu = registry.init(cfg, torch.Generator(device=dev).manual_seed(1),
                         device=dev)
 
@@ -939,7 +1173,7 @@ def phase_serve_parity(torch, np, dev):
         errs.append(float((lc_h - lh).abs().max()))
         scale = float(lh.abs().max())
         if not errs[-1] <= tol * max(1.0, scale):
-            raise AssertionError(f"serve_parity step {step}: max abs err "
+            raise AssertionError(f"{phase} step {step}: max abs err "
                                  f"{errs[-1]} (logit scale {scale})")
         tc, th = lc_h.argmax(-1), lh.argmax(-1)
         for lane in np.nonzero((tc != th).numpy())[0]:
@@ -947,7 +1181,7 @@ def phase_serve_parity(torch, np, dev):
             gap = float(top2[0] - top2[1])
             gaps.append({"step": step, "lane": int(lane), "gap": gap})
             if gap >= tol * max(1.0, scale):
-                raise AssertionError(f"serve_parity: token differs at "
+                raise AssertionError(f"{phase}: token differs at "
                                      f"step {step} lane {lane} with top-2 "
                                      f"gap {gap}")
         if step == new - 1:
@@ -958,8 +1192,9 @@ def phase_serve_parity(torch, np, dev):
     out_h = host.generate(prompts)
     same = bool((out_c["tokens"] == out_h["tokens"]).all())
     if not same and not gaps:
-        raise AssertionError("serve_parity: generate tokens differ")
-    emit("serve_parity", arch=cfg.name, n_layers=n_layers, dtype="float32",
+        raise AssertionError(f"{phase}: generate tokens differ")
+    emit(phase, arch=cfg.name, n_layers=n_layers, overrides=overrides,
+         dtype="float32",
          batch=batch, prompt_len=prompt_len, new_tokens=new, tolerance=tol,
          logits_max_abs_err=errs, token_gaps_where_differ=gaps,
          tokens_equal=same, decode_steps=out_c["stats"].decode_steps)
@@ -987,7 +1222,8 @@ def phase_live_serve(torch, dev):
         path = pathlib.Path(tmp) / "live_serve_trace.json"
         _zero_kernel_counts()
         rep, ledger = record_live_serve(path, device=dev)
-        counts = _kernel_counts()
+        counts = {k: c for k, c in _kernel_counts().items()
+                  if k in ("flash_attention", "decode_attention")}
         if rep.status != "ok" or min(counts.values()) < 1:
             raise AssertionError(f"live_serve: status {rep.status}, "
                                  f"launches {counts}")
@@ -1025,9 +1261,24 @@ def main() -> int:
     phase_check_interval(torch, np, dev, *phase_sweep(torch, dev))
     fa = phase_flash_attention(torch, np, dev)
     da = phase_decode_attention(torch, np, dev)
-    launches.update(phase_serve(torch, np, dev))
+    rg = phase_rglru_scan(torch, np, dev)
+    ml = phase_mlstm_chunkwise(torch, np, dev)
+    by_path = {"serve": phase_serve(torch, np, dev)}
     phase_serve_parity(torch, np, dev)
+    by_path["serve_rglru"] = phase_serve(torch, np, dev, SERVE_RGLRU,
+                                         "serve_rglru", seed=8)
+    phase_serve_parity(torch, np, dev, SERVE_RGLRU[0], PARITY_RGLRU,
+                       "serve_parity_rglru")
+    by_path["serve_xlstm"] = phase_serve(torch, np, dev, SERVE_XLSTM,
+                                         "serve_xlstm", seed=9)
+    phase_serve_parity(torch, np, dev, SERVE_XLSTM[0], PARITY_XLSTM,
+                       "serve_parity_xlstm")
     phase_live_serve(torch, dev)
+    paths = {"minskew": {"main_path": launches["minskew"]},
+             "hub_route": {"main_path": launches["hub_route"]}}
+    for kname in ("flash_attention", "decode_attention", "rglru_scan",
+                  "mlstm_chunkwise"):
+        paths[kname] = {p: c[kname] for p, c in by_path.items() if c[kname]}
     kernels = []
     for kname, row, src, tpu in (
             ("minskew", ms, "src/repro_torch/kernels/csrc/minskew.cu",
@@ -1039,10 +1290,17 @@ def main() -> int:
              "src/repro/kernels/flash_attention.py:91"),
             ("decode_attention", da,
              "src/repro_torch/kernels/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:74")):
+             "src/repro/kernels/decode_attention.py:74"),
+            ("rglru_scan", rg, "src/repro_torch/kernels/csrc/rglru_scan.cu",
+             "src/repro/kernels/rglru_scan.py:60"),
+            ("mlstm_chunkwise", ml,
+             "src/repro_torch/kernels/csrc/mlstm_kernel.cu",
+             "src/repro/kernels/mlstm_kernel.py:79")):
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[kname], "max_abs_err": row["max_abs_err"],
+            "launches": sum(paths[kname].values()),
+            "launches_by_path": paths[kname],
+            "max_abs_err": row["max_abs_err"],
             "ms": row["kernel_ms"],
             "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "device_ms": row["kernel_device_ms"],
@@ -1052,7 +1310,7 @@ def main() -> int:
             "library_ms": row.get("library_ms"),
             "shape": {k: row[k] for k in row
                       if k in ("V", "N", "S", "M", "links", "B", "H", "Hkv",
-                               "hd", "dtype", "lengths")}})
+                               "hd", "dtype", "lengths", "W", "BH")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

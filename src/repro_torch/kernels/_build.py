@@ -28,7 +28,8 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("minskew", "hub_route", "flash_attention", "decode_attention")
+SOURCES = ("minskew", "hub_route", "flash_attention", "decode_attention",
+           "rglru_scan", "mlstm_kernel")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,13 +1,14 @@
 """Plain PyTorch versions of the port's kernels, plus the numpy oracles.
 
-``minskew_plain``, ``hub_route_plain``, ``attention_flat_plain`` and
-``decode_attention_plain`` compute what the CUDA kernels compute, with
-ordinary tensor ops: the CPU path of every wrapper, and what
-``chip_smoke.py`` holds each kernel against on the card.
-``minskew_ref`` and ``hub_visibility_ref`` are the sequential numpy
-oracles, copied from the JAX package.  The scheduler results are
-integer, so those agree bit for bit; attention agrees within a
-floating-point tolerance (sums taken in another order).
+``minskew_plain``, ``hub_route_plain``, ``attention_flat_plain``,
+``decode_attention_plain``, ``rglru_plain`` and ``mlstm_chunkwise_plain``
+compute what the CUDA kernels compute, with ordinary tensor ops: the CPU
+path of every wrapper, and what ``chip_smoke.py`` holds each kernel
+against on the card.  ``minskew_ref``, ``hub_visibility_ref`` and
+``mlstm_seq_plain`` are the sequential oracles of the JAX package.  The
+scheduler results are integer, so those agree bit for bit; attention and
+the recurrences agree within a floating-point tolerance (sums taken in
+another order).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 INF = 2**30          # int32 "no runnable member" / never sentinel
+I_CAP = 8.0          # mLSTM input gate: i = exp(min(i_raw, I_CAP))
+MLSTM_CHUNK = 512    # the JAX model's chunk (models/xlstm.py CHUNK)
 NEG = -(2**30)       # identity start of the max-plus scan
 NEG_INF = -1e30      # masked attention score (not -inf: see below)
 
@@ -77,6 +80,113 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     sc = torch.where(valid, sc, NEG_INF)
     p = torch.where(valid, torch.softmax(sc, dim=-1), 0.0)
     return torch.einsum("bhs,bshd->bhd", p, v.float()).to(q.dtype)
+
+
+# -- RG-LRU linear recurrence ---------------------------------------------------
+
+
+def rglru_plain(log_a: torch.Tensor, b: torch.Tensor,
+                h0=None) -> torch.Tensor:
+    """h_t = exp(log_a_t) * h_{t-1} + b_t over axis 1, from h0 (zeros
+    when None).  log_a, b (B, S, W) float32, h0 (B, W) -> (B, S, W).
+    A sequential loop over S, as the JAX package's ``rglru_ref``."""
+    bsz, s, w = log_a.shape
+    h = (torch.zeros((bsz, w), dtype=torch.float32, device=log_a.device)
+         if h0 is None else h0.float())
+    a = torch.exp(log_a.float())
+    out = torch.empty((bsz, s, w), dtype=torch.float32, device=log_a.device)
+    for t in range(s):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out
+
+
+# -- mLSTM chunkwise ------------------------------------------------------------
+
+
+def mlstm_chunkwise_plain(q, k, v, i_raw, f_raw, c0=None, n0=None,
+                          chunk: int = MLSTM_CHUNK):
+    """Chunkwise-parallel mLSTM: the JAX model's ``mlstm_chunkwise``
+    (``repro.models.xlstm``), operation for operation.
+
+    q, k, v (B, S, H, hd) in the model dtype; i_raw, f_raw (B, S, H)
+    float32; c0 (B, H, hd, hd) and n0 (B, H, hd) float32, zeros when
+    None.  Returns h (B, S, H, hd) in q's dtype and the final (C, n).
+    Where S is not a multiple of ``chunk`` the whole sequence is one
+    chunk, as in the JAX model."""
+    b, s, h, hd = q.shape
+    if s % chunk != 0:
+        chunk = s                     # single chunk fallback
+    nc = s // chunk
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    c = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=dev)
+         if c0 is None else c0.float())
+    n = (torch.zeros((b, h, hd), dtype=torch.float32, device=dev)
+         if n0 is None else n0.float())
+    li = torch.clamp(i_raw.float(), max=I_CAP)            # log input gate
+    lf = torch.nn.functional.logsigmoid(f_raw.float())    # log forget gate
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=dev))
+    hs = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        qi = q[:, sl].float() * scale
+        ki = k[:, sl].float()
+        vi = v[:, sl].float()
+        lii, lfi = li[:, sl], lf[:, sl]                   # (B,L,H)
+        a = torch.cumsum(lfi, dim=1)
+        a_l = a[:, -1:, :]                                # (B,1,H)
+        dec_q = torch.exp(a)
+        qd = qi * dec_q[..., None]
+        out = torch.einsum("blhd,bhde->blhe", qd, c)
+        den = torch.einsum("blhd,bhd->blh", qd, n)
+        w_kj = torch.exp(lii - a)                         # i_j exp(-A_j)
+        sc = torch.einsum("blhd,bmhd->bhlm", qd, ki * w_kj[..., None])
+        sc = torch.where(mask[None, None], sc, 0.0)
+        out = out + torch.einsum("bhlm,bmhd->blhd", sc, vi)
+        den = den + sc.sum(dim=-1).transpose(1, 2)        # (B,L,H)
+        hs.append(out / torch.clamp(den.abs(), min=1.0)[..., None])
+        w_c = torch.exp(a_l - a + lii)                    # (B,L,H)
+        decay = torch.exp(a_l).transpose(1, 2)            # (B,H,1)
+        kw = ki * w_c[..., None]
+        c = c * decay[..., None] + torch.einsum("blhd,blhe->bhde", kw, vi)
+        n = n * decay + kw.sum(dim=1)
+    out = torch.cat(hs, dim=1) if hs else q.new_zeros(q.shape,
+                                                      dtype=torch.float32)
+    return out.to(q.dtype), (c, n)
+
+
+def mlstm_step_plain(q, k, v, i_raw, f_raw, c, n):
+    """One recurrent mLSTM step (the JAX model's ``mlstm_step``).
+    q, k, v (B, H, hd); gates (B, H); c (B, H, hd, hd), n (B, H, hd)
+    float32 -> (h (B, H, hd) in q's dtype, (c, n))."""
+    hd = q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    q32 = q.float() * scale
+    k32 = k.float()
+    v32 = v.float()
+    i_g = torch.exp(torch.clamp(i_raw.float(), max=I_CAP))[..., None]
+    f_g = torch.sigmoid(f_raw.float())[..., None]         # (B,H,1)
+    c = c * f_g[..., None] + i_g[..., None] * (k32[..., :, None]
+                                               * v32[..., None, :])
+    n = n * f_g + i_g * k32
+    out = torch.einsum("bhd,bhde->bhe", q32, c)
+    den = torch.einsum("bhd,bhd->bh", q32, n)
+    h = out / torch.clamp(den.abs(), min=1.0)[..., None]
+    return h.to(q.dtype), (c, n)
+
+
+def mlstm_seq_plain(q, k, v, i_raw, f_raw, c0, n0):
+    """The step-recurrent oracle (the JAX package's ``mlstm_seq_ref``):
+    q, k, v (B, S, H, hd), gates (B, S, H) -> (h (B, S, H, hd), (C, n))."""
+    c, n = c0, n0
+    hs = []
+    for t in range(q.shape[1]):
+        h, (c, n) = mlstm_step_plain(q[:, t], k[:, t], v[:, t],
+                                     i_raw[:, t], f_raw[:, t], c, n)
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n)
 
 
 # -- minskew (scheduler hot spot) -----------------------------------------------

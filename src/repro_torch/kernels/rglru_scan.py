@@ -1,0 +1,96 @@
+"""RG-LRU linear recurrence: the CUDA kernel and its wrapper.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/rglru_scan.py``
+(``_kernel``, wrapper ``rglru_scan``): ``h_t = exp(log_a_t) * h_{t-1}
++ b_t`` over the sequence axis of float32 (B, S, W) inputs, from an
+optional initial state h0 (B, W).  recurrentgemma's prefill runs it
+once per recurrent layer.
+
+Bound on the H100: bytes (log_a and b read once, h written once).  The
+first kernel (``csrc/rglru_scan.cu``) runs one thread per (b, w)
+channel with h in a register, loads coalesced along W and unrolled over
+S so that several are in flight; see the source note.
+
+On a CPU tensor the wrapper computes the plain version
+(:func:`repro_torch.kernels.ref.rglru_plain`); on a CUDA tensor it
+launches the kernel or raises.  Both paths check dtypes and shapes
+first.  ``rglru_scan.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import rglru_plain
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The configured launcher, set up once."""
+    fn = _build.load("rglru_scan").rglru_scan_launch
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def _check(log_a, b, h0):
+    if log_a.dim() != 3:
+        raise ValueError("rglru_scan: log_a and b must be (B, S, W)")
+    tensors = [("log_a", log_a), ("b", b)]
+    if h0 is not None:
+        tensors.append(("h0", h0))
+    for name, t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"rglru_scan: {name} is {t.dtype}, expected "
+                            f"torch.float32")
+        if t.device != log_a.device:
+            raise ValueError(f"rglru_scan: {name} on {t.device}, log_a on "
+                             f"{log_a.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"rglru_scan: {name} is not contiguous")
+    bsz, _, w = log_a.shape
+    if b.shape != log_a.shape or (h0 is not None
+                                  and tuple(h0.shape) != (bsz, w)):
+        raise ValueError(
+            f"rglru_scan: log_a {tuple(log_a.shape)}, b {tuple(b.shape)}, "
+            f"h0 {None if h0 is None else tuple(h0.shape)} disagree")
+
+
+def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """log_a, b (B, S, W) float32; h0 (B, W) float32 or None (zeros)
+    -> h (B, S, W) float32."""
+    _check(log_a, b, h0)
+    if log_a.device.type == "cpu":
+        return rglru_plain(log_a, b, h0)
+    return _launch(log_a, b, h0)
+
+
+def _launch(log_a, b, h0):
+    if log_a.device.type != "cuda":
+        raise ValueError(f"rglru_scan: no kernel for device {log_a.device}")
+    bsz, s, w = log_a.shape
+    if h0 is None:
+        h0 = torch.zeros((bsz, w), dtype=torch.float32, device=log_a.device)
+    out = torch.empty_like(log_a)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(log_a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib()(log_a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+                     out.data_ptr(), bsz, s, w, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"rglru_scan kernel launch failed: CUDA error {err}")
+    rglru_scan.launches += 1
+    return out
+
+
+rglru_scan.launches = 0

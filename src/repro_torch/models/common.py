@@ -92,6 +92,19 @@ class ModelConfig:
         return int(count(registry.param_specs(self)))
 
 
+class F32(tuple):
+    """A leaf of ``param_specs``: the shape of a parameter that is
+    float32 whatever the model's dtype (the recurrent families' gate
+    weights).  A plain tuple leaf takes the model's dtype."""
+
+
+def stacked(n: int, tree: dict) -> dict:
+    """Shapes of ``tree`` with a leading layer dimension ``n``, keeping
+    the ``F32`` marker."""
+    return {k: stacked(n, v) if isinstance(v, dict)
+            else type(v)((n,) + tuple(v)) for k, v in tree.items()}
+
+
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
@@ -171,6 +184,48 @@ def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
     u = x @ p["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ p["w_down"]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def geglu_block(cfg: "ModelConfig", p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The recurrent families' residual GeGLU feed-forward: pre-norm
+    ``ln2``, ``ff1`` to [gate, up], GeLU of the gate in float32,
+    ``ff2``."""
+    xf = rms_norm(x, p["ln2"], cfg.norm_eps)
+    g, u = (xf @ p["ff1"]).chunk(2, dim=-1)
+    return x + (gelu(g.float()).to(x.dtype) * u) @ p["ff2"]
+
+
+# ---------------------------------------------------------------------------
+# Model assembly
+# ---------------------------------------------------------------------------
+
+
+def pick(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked parameter tree: views, nested dicts
+    included."""
+    return {k: pick(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def zeros_from_specs(specs: dict, dtype, device) -> dict:
+    """A zero state at the shapes of a ``cache_specs`` dict: ``F32``
+    leaves float32, the others ``dtype``, and ``len`` 0."""
+    return {k: 0 if k == "len" else torch.zeros(
+                shape, device=device,
+                dtype=torch.float32 if isinstance(shape, F32) else dtype)
+            for k, shape in specs.items()}
+
+
+def final_logits(cfg: "ModelConfig", params: dict,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head -> float32 logits."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ leaves (``jax.tree.map(np.asarray, params)``; layers stacked on a
 leading ``L`` dimension) and returns the port's tree of tensors.  It
 copies values and does no arithmetic, so the two packages compute the
 same function from the same parameters.  bfloat16 leaves (numpy's
-``bfloat16`` extension dtype) are carried bit for bit.
+``bfloat16`` extension dtype) are carried bit for bit, and a leaf that
+``param_specs`` marks float32 (``common.F32``: the recurrent families'
+gate weights) stays float32 in a model of any dtype.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import registry
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import F32, ModelConfig
 
 
 def _tensor(leaf) -> torch.Tensor:
@@ -28,7 +30,8 @@ def _tensor(leaf) -> torch.Tensor:
 def params_from_jax(cfg: ModelConfig, tree: dict, *, device,
                     dtype: Optional[torch.dtype] = None) -> dict:
     """The port's parameters from a JAX tree of numpy arrays, on
-    ``device``, cast to ``dtype`` (default: ``cfg.dtype``).  The tree
+    ``device``, cast to ``dtype`` (default: ``cfg.dtype``) except the
+    leaves marked float32, which stay float32.  The tree
     must have exactly the port's keys and shapes
     (``registry.param_specs(cfg)``)."""
     dtype = cfg.dtype if dtype is None else dtype
@@ -44,6 +47,7 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *, device,
         if tuple(t.shape) != tuple(spec):
             raise ValueError(f"params_from_jax: {path} has shape "
                              f"{tuple(t.shape)}, expected {tuple(spec)}")
-        return t.to(device=device, dtype=dtype)
+        return t.to(device=device,
+                    dtype=torch.float32 if isinstance(spec, F32) else dtype)
 
     return carry(registry.param_specs(cfg), tree, "")

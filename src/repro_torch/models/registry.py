@@ -1,10 +1,9 @@
 """Family dispatch, PyTorch port of ``repro.models.registry``: every
 architecture exposes one uniform interface.
 
-Only the ``dense`` family is ported; ``rglru`` and ``xlstm`` wait for
-ROADMAP A10, ``moe``, ``encdec`` and ``vlm`` for A11.  The sharding
-metadata (``logical_axes``, ``cache_axes``) waits for the mesh code
-(A8).
+The ``dense``, ``rglru`` and ``xlstm`` families are ported; ``moe``,
+``encdec`` and ``vlm`` wait for ROADMAP A11.  The sharding metadata
+(``logical_axes``, ``cache_axes``) waits for the mesh code (A8).
 """
 from __future__ import annotations
 
@@ -12,8 +11,7 @@ import torch
 
 from repro_torch.models.common import ModelConfig
 
-_ROADMAP = {"rglru": "A10", "xlstm": "A10", "moe": "A11", "encdec": "A11",
-            "vlm": "A11"}
+_ROADMAP = {"moe": "A11", "encdec": "A11", "vlm": "A11"}
 
 
 def _module(cfg: ModelConfig):
@@ -21,6 +19,12 @@ def _module(cfg: ModelConfig):
     if fam == "dense":
         from repro_torch.models import transformer
         return transformer
+    if fam == "rglru":
+        from repro_torch.models import rglru
+        return rglru
+    if fam == "xlstm":
+        from repro_torch.models import xlstm
+        return xlstm
     if fam in _ROADMAP:
         raise NotImplementedError(
             f"{cfg.name}: the {fam!r} family is not ported yet "

@@ -119,10 +119,7 @@ def init(cfg: ModelConfig, generator: torch.Generator, *,
 
 def layer(params: dict, i: int) -> dict:
     """Layer ``i``'s parameters: views into the stacked tensors."""
-    def pick(tree):
-        return {k: pick(v) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-    return pick(params["layers"])
+    return cm.pick(params["layers"], i)
 
 
 # ---------------------------------------------------------------------------
@@ -157,11 +154,6 @@ def _ffn_block(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     return x + cm.mlp_forward(lp["mlp"], h)
 
 
-def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float()
-
-
 # ---------------------------------------------------------------------------
 # Forward (scoring)
 # ---------------------------------------------------------------------------
@@ -180,7 +172,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         o = attn.multi_head_attention(q, k, v, causal=True,
                                       window=cfg.window)
         x = _ffn_block(cfg, lp, _out_proj(lp, x, o))
-    logits = _logits(cfg, params, x)
+    logits = cm.final_logits(cfg, params, x)
     if return_aux:
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)
     return logits
@@ -216,7 +208,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         o = attn.multi_head_attention(q, k, v, causal=True,
                                       window=cfg.window)
         x = _ffn_block(cfg, lp, _out_proj(lp, x, o))
-    logits = _logits(cfg, params, x[:, -1])
+    logits = cm.final_logits(cfg, params, x[:, -1])
     return logits, {"k": ks, "v": vs, "len": s}
 
 
@@ -245,7 +237,7 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
         vs[i, :, n] = v[:, 0]
         o = attn.decode_attention(q, ks[i], vs[i], lengths)
         x = _ffn_block(cfg, lp, _out_proj(lp, x, o))
-    logits = _logits(cfg, params, x[:, 0])
+    logits = cm.final_logits(cfg, params, x[:, 0])
     return logits, {"k": ks, "v": vs, "len": n + 1}
 
 

@@ -1,0 +1,98 @@
+"""The port's recurrent kernels and models on the card, against their
+plain versions.  Marked ``cuda``: without a CUDA card every test skips
+(decided in the fixture, not at import).  This file imports neither JAX
+nor the JAX package, so it runs on a machine with the card alone:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance: 1e-4 relative to max(1, largest |plain value|) in float32 (the
+same float32 arithmetic with sums in another order), 2e-2 for bfloat16
+outputs (one rounding to bfloat16); chip_smoke.py holds the same kernels
+at the serving shapes.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype=torch.float32):
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    assert err <= TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("b,s,w,with_h0", [(2, 300, 32, True),
+                                           (3, 64, 128, False),
+                                           (1, 7, 4100, True)])
+def test_rglru_kernel_vs_plain(dev, b, s, w, with_h0):
+    from repro_torch.kernels.ref import rglru_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    g = torch.Generator(device=dev).manual_seed(0)
+    log_a = -torch.rand(b, s, w, generator=g, device=dev) * 0.3
+    bv = torch.randn(b, s, w, generator=g, device=dev)
+    h0 = torch.randn(b, w, generator=g, device=dev) if with_h0 else None
+    before = rglru_scan.launches
+    got = rglru_scan(log_a, bv, h0)
+    assert rglru_scan.launches == before + 1
+    _close(got, rglru_plain(log_a, bv, h0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,hd,carry", [(2, 200, 64, True),
+                                           (3, 128, 32, False),
+                                           (1, 70, 100, True)])
+def test_mlstm_kernel_vs_plain(dev, dtype, bh, s, hd, carry):
+    from repro_torch.kernels.mlstm_kernel import (mlstm_chunkwise,
+                                                  mlstm_flat_plain)
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(bh, s, hd, generator=g, device=dev).mul(0.3)
+               .to(dtype) for _ in range(3))
+    ig = torch.randn(bh, s, generator=g, device=dev)
+    fg = torch.randn(bh, s, generator=g, device=dev) + 2.0
+    c0 = torch.randn(bh, hd, hd, generator=g, device=dev) * 0.1 \
+        if carry else None
+    n0 = torch.randn(bh, hd, generator=g, device=dev) * 0.1 if carry else None
+    before = mlstm_chunkwise.launches
+    h, (c, n) = mlstm_chunkwise(q, k, v, ig, fg, c0, n0)
+    assert mlstm_chunkwise.launches == before + 1
+    hw, (cw, nw) = mlstm_flat_plain(q, k, v, ig, fg, c0, n0)
+    _close(h, hw, dtype)
+    _close(c, cw)
+    _close(n, nw)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_1_3b"])
+def test_recurrent_models_card_vs_cpu(dev, arch):
+    """Smoke config in float32: prefill past the window, then decode, on
+    the card (kernels) and on the CPU (plain versions)."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32)
+    params = registry.init(cfg, torch.Generator(device=dev).manual_seed(2),
+                           device=dev)
+    cpu = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+               else v.cpu()) for k, v in params.items()}
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 100)).astype(np.int32))
+    lg, cg = registry.prefill(cfg, params, tokens.to(dev))
+    lc, cc = registry.prefill(cfg, cpu, tokens)
+    _close(lg.cpu(), lc)
+    for _ in range(3):
+        tok = lc.argmax(-1).to(torch.int32)
+        lg, cg = registry.decode_step(cfg, params, tok.to(dev), cg)
+        lc, cc = registry.decode_step(cfg, cpu, tok, cc)
+        _close(lg.cpu(), lc)

@@ -36,10 +36,12 @@ def test_port_files_exist():
                 "kernels/minskew.py", "kernels/hub_route.py",
                 "kernels/ref.py", "kernels/ops.py", "kernels/_build.py",
                 "kernels/flash_attention.py", "kernels/decode_attention.py",
-                "models/transformer.py", "serve/loop.py", "sim/live.py"):
+                "kernels/rglru_scan.py", "kernels/mlstm_kernel.py",
+                "models/transformer.py", "models/rglru.py",
+                "models/xlstm.py", "serve/loop.py", "sim/live.py"):
         assert f"repro_torch/{mod}" in names, mod
     for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",
-                "decode_attention.cu"):
+                "decode_attention.cu", "rglru_scan.cu", "mlstm_kernel.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file()
 
@@ -73,12 +75,13 @@ def test_port_runs_with_jax_and_repro_blocked():
         from repro_torch import configs
         from repro_torch.models import registry
         from repro_torch.serve.loop import BatchServer
-        cfg = configs.get_smoke("qwen3_4b")
-        params = registry.init(cfg, torch.Generator().manual_seed(0),
-                               device="cpu")
-        out = BatchServer(cfg, params, max_new_tokens=3,
-                          device="cpu").generate([[1, 2, 3, 4]])
-        assert out["tokens"].shape == (1, 3), out["tokens"].shape
+        for arch in ("qwen3_4b", "recurrentgemma_9b", "xlstm_1_3b"):
+            cfg = configs.get_smoke(arch)
+            params = registry.init(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+            out = BatchServer(cfg, params, max_new_tokens=3,
+                              device="cpu").generate([[1, 2, 3, 4] * 3])
+            assert out["tokens"].shape == (1, 3), out["tokens"].shape
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
@@ -115,6 +118,9 @@ def test_serving_path_lands_on_cuda_unless_asked(monkeypatch):
     from repro_torch.models import registry
     from repro_torch.serve.loop import BatchServer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("recurrentgemma_9b", "xlstm_1_3b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            registry.init(configs.get_smoke(arch), torch.Generator())
     cfg = configs.get_smoke("qwen3_4b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         registry.init(cfg, torch.Generator())

@@ -146,8 +146,18 @@ def test_qwen3_4b_full_width_size():
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_non_dense_families_raise(arch):
+    """The families not ported yet raise, naming their ROADMAP item; the
+    recurrent families (ported, tests/test_torch_{rglru,xlstm}.py) build
+    their parameters with the JAX package's shapes."""
     cfg = tconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1[01]"):
+    if cfg.family in ("rglru", "xlstm"):
+        specs = treg.param_specs(cfg)
+        jspecs = jreg.param_specs(jconfigs.get_smoke(arch))
+        assert jax.tree.map(lambda s: tuple(s.shape), jspecs) == specs
+        p = treg.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        assert tuple(p["embed"].shape) == specs["embed"]
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         treg.init(cfg, torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         treg.param_specs(cfg)
@@ -188,6 +198,34 @@ def test_params_from_jax_checks_the_tree():
     bad = dict(tree, final_norm=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(cfg, bad, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "recurrentgemma_9b",
+                                  "xlstm_1_3b"])
+def test_params_from_jax_keeps_float32_leaves(arch):
+    """In a bfloat16 model the leaves that JAX keeps in float32 (the
+    recurrent families' gate weights) stay float32, bit for bit; every
+    other leaf, and every leaf of the dense family, takes the model's
+    dtype."""
+    jcfg = jconfigs.get_smoke(arch)
+    tree = jax.tree.map(np.asarray, jreg.init(jcfg, jax.random.PRNGKey(2)))
+    got = params_from_jax(tconfigs.get_smoke(arch), tree, device="cpu")
+    leaves = jax.tree_util.tree_leaves_with_path(tree)
+    n_f32 = 0
+    for path, leaf in leaves:
+        t = got
+        for key in path:
+            t = t[key.key]
+        if leaf.dtype == np.float32:
+            n_f32 += 1
+            assert t.dtype == torch.float32, path
+            np.testing.assert_array_equal(t.numpy(), leaf)
+        else:
+            assert t.dtype == torch.bfloat16, path
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                          leaf.view(np.int16))
+    assert n_f32 == {"qwen3_4b": 0, "recurrentgemma_9b": 5,
+                     "xlstm_1_3b": 4}[arch]
 
 
 def test_params_from_jax_carries_bfloat16_bits():
