@@ -10,7 +10,7 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — the six CUDA kernels compiled from
+2. build — the seven CUDA sources of the six kernels compiled from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
 3. minskew — kernel vs plain version on the card, bit-equal, timed;
 4. hub_route — the same;
@@ -31,9 +31,14 @@ One JSON line per phase:
    float32, timed beside ``scaled_dot_product_attention`` (with a
    boolean band mask where a window applies), and at recurrentgemma_9b's
    prefill shape (B=4, S=3,072, H=16, Hkv=1, hd=256, window 2,048);
+   untimed at hd 8, 24 and 40, one query row, Sq < Sk under the causal
+   mask and a window narrower than a key tile, and through
+   ``ops.flash_attention`` on non-contiguous (B, S, H, hd) views;
 9. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
    hd=128, S=1056, ragged lengths), at S=8192, at recurrentgemma's
-   ring buffer (S=2,048, MQA, hd 256) and the edge shapes;
+   ring buffer (S=2,048, MQA, hd 256) and the edge shapes: lengths on
+   and either side of the split kernel's chunk boundaries, a length-0
+   row among full rows, lengths above S, qpk = 1;
 10. rglru_scan — kernel vs plain version at recurrentgemma's prefill
    shape (B=4, S=3,072, W=4,096) and tests/test_kernels.py's shapes
    (padded S, h0), float32;
@@ -590,11 +595,17 @@ def phase_check_interval(torch, np, dev, axis, tick: int,
 # ------------------------------------------------------- serving kernels
 
 
-FLASH_KERNELS = ("flash_kernel",)
-DECODE_KERNELS = ("decode_kernel",)
+#: the device kernels of one wrapper call: bf16 flash runs the tensor-core
+#: kernel, fp32 flash the CUDA-core one (one launch either way); decode
+#: runs the split kernel and the combine kernel
+FLASH_KERNELS = ("flash_sm90_kernel", "flash_kernel")
+DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 #: (case, B, H, Hkv, Sq, Sk, hd, causal, window, timed): the serving
-#: path's prefill shape, a longer prompt, and tests/test_kernels.py's
-#: edge shapes (GQA, padded tail, window, cross attention, hd 128)
+#: path's prefill shape, a longer prompt, recurrentgemma's prefill,
+#: tests/test_kernels.py's edge shapes (GQA, padded tail, window, cross
+#: attention, hd 128), head dims that are not multiples of 16 (the bf16
+#: kernel pads them to 64 in shared memory), one query row, fewer queries
+#: than keys under the causal mask, and a window narrower than a key tile
 FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                ("s4096", 4, 32, 8, 4096, 4096, 128, True, 0, True),
                ("rglru_prefill", 4, 16, 1, 3072, 3072, 256, True, 2048,
@@ -603,10 +614,20 @@ FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                ("padded", 1, 8, 2, 96, 96, 32, True, 0, False),
                ("window64", 1, 2, 1, 256, 256, 64, True, 64, False),
                ("cross", 1, 2, 2, 64, 192, 32, False, 0, False),
-               ("hd128", 1, 6, 3, 128, 128, 128, True, 0, False)]
-#: (case, B, H, Hkv, S, hd, lengths or None for random, timed): the
-#: serving path's decode shape (S = 1,024 + 32 cache positions), a long
-#: cache, tests/test_kernels.py's decode shapes and a length-0 row
+               ("hd128", 1, 6, 3, 128, 128, 128, True, 0, False),
+               ("hd8", 2, 4, 2, 100, 100, 8, True, 0, False),
+               ("hd24", 1, 4, 1, 130, 130, 24, True, 0, False),
+               ("hd40", 1, 4, 2, 70, 70, 40, False, 0, False),
+               ("sq1", 2, 4, 2, 1, 1, 64, True, 0, False),
+               ("sq1_cross", 2, 4, 2, 1, 77, 64, False, 0, False),
+               ("sq_lt_sk_causal", 1, 4, 2, 50, 300, 128, True, 0, False),
+               ("window5", 1, 4, 2, 200, 200, 256, True, 5, False)]
+#: (case, B, H, Hkv, S, hd, lengths, timed): lengths a list, None for
+#: random, or "edges" for the split boundaries of the shape's own chunk
+#: (chunk - 1, chunk, chunk + 1, 2 chunk).  The serving path's decode
+#: shape (S = 1,024 + 32 cache positions), a long cache, recurrentgemma's
+#: ring buffer, tests/test_kernels.py's decode shapes, a length-0 row alone
+#: and among full rows, lengths above S (clamped) and qpk = 1
 DECODE_CASES = [("main", 4, 32, 8, 1056, 128, [1, 300, 777, 1056], True),
                 ("s8192", 4, 32, 8, 8192, 128, [1, 2048, 5000, 8192], True),
                 ("rglru_ring", 4, 16, 1, 2048, 256, [2048] * 4, True),
@@ -616,7 +637,13 @@ DECODE_CASES = [("main", 4, 32, 8, 1056, 128, [1, 300, 777, 1056], True),
                 ("gqa4", 2, 8, 2, 256, 64, None, False),
                 ("mqa_padded", 3, 4, 1, 300, 32, None, False),
                 ("hd128", 1, 16, 8, 512, 128, None, False),
-                ("empty_row", 3, 4, 2, 100, 32, [0, 1, 100], False)]
+                ("empty_row", 3, 4, 2, 100, 32, [0, 1, 100], False),
+                ("split_edges", 4, 32, 8, 1056, 128, "edges", False),
+                ("ring_split_edges", 4, 16, 1, 2048, 256, "edges", False),
+                ("zero_among_full", 4, 32, 8, 1056, 128,
+                 [1056, 0, 1056, 1056], False),
+                ("over_s", 3, 8, 2, 300, 64, [301, 5000, 300], False),
+                ("qpk1", 2, 8, 8, 300, 128, None, False)]
 #: the serving paths: (arch, batch, prompt length, new tokens), full
 #: width and depth in bfloat16.  recurrentgemma's prompt is longer than
 #: its 2,048 window, so the window binds in flash_attention, prefill
@@ -704,6 +731,7 @@ def phase_flash_attention(torch, np, dev):
     times at the serving shapes beside ``scaled_dot_product_attention``
     (timed here only: the port never calls it; a window becomes a
     boolean band mask, since SDPA has no window argument)."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_flat
     from repro_torch.kernels.ref import attention_flat_plain
     g = torch.Generator(device=dev).manual_seed(2)
@@ -751,15 +779,56 @@ def phase_flash_attention(torch, np, dev):
                 **_library(torch, lib, iters),
                 "bound_ms": bound, "bound_by": by, "flops": flops,
                 "bytes": n_bytes})
-    emit("flash_attention", tolerance=ATTN_TOL, shapes=main, edge=edge)
+            if name == "main":              # what the serving path calls
+                bshd = [t.view(b, -1, t.shape[1], hd).transpose(1, 2)
+                        .contiguous() for t in (q, k, v)]
+                main[-1]["kernel_bshd_ms"] = timed_ms(
+                    torch, lambda: ops.flash_attention(*bshd, causal=causal),
+                    iters)
+                del bshd
+    emit("flash_attention", tolerance=ATTN_TOL, shapes=main, edge=edge,
+         strided=flash_strided_views(torch, dev, g))
     return main[0]
+
+
+def flash_strided_views(torch, dev, g, b=2, s=200, h=8, hkv=2, hd=128):
+    """``ops.flash_attention`` on (B, S, H, hd) views whose strides are not
+    contiguous (bf16 reads them in place): q, k, v sliced from one fused
+    projection output, and heads-first storage transposed; held to the
+    plain version of contiguous copies."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_flat_plain
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        for kind in ("fused", "heads_first"):
+            if kind == "fused":
+                x = torch.randn(b, s, h + 2 * hkv, hd, generator=g,
+                                device=dev).to(dt)
+                q, k, v = x[:, :, :h], x[:, :, h:h + hkv], x[:, :, h + hkv:]
+            else:
+                x = torch.randn(b, h + 2 * hkv, s, hd, generator=g,
+                                device=dev).to(dt)
+                q, k, v = (t.transpose(1, 2) for t in (
+                    x[:, :h], x[:, h:h + hkv], x[:, h + hkv:]))
+            got = ops.flash_attention(q, k, v, causal=True)
+            want = attention_flat_plain(
+                *(t.transpose(1, 2).reshape(-1, s, hd).contiguous()
+                  for t in (q, k, v)), causal=True)
+            torch.cuda.synchronize()
+            err = _err(got, want.view(b, h, s, hd).transpose(1, 2))
+            _hold("flash_attention", err, _dname(torch, dt), kind)
+            rows.append({"view": kind, "dtype": _dname(torch, dt),
+                         "contiguous": q.is_contiguous(),
+                         "max_abs_err": err})
+    return rows
 
 
 def phase_decode_attention(torch, np, dev):
     """Kernel vs plain version (``decode_attention_plain``) on the card;
     times at the decode shapes beside ``scaled_dot_product_attention``
     with a boolean mask built from ``lengths``."""
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      n_splits, split_chunk)
     from repro_torch.kernels.ref import decode_attention_plain
     g = torch.Generator(device=dev).manual_seed(3)
     rng = np.random.default_rng(3)
@@ -769,6 +838,9 @@ def phase_decode_attention(torch, np, dev):
         for name, b, h, hkv, s, hd, lens, timed in DECODE_CASES:
             if lens is None:
                 lens = rng.integers(1, s + 1, size=b).tolist()
+            elif lens == "edges":
+                c = split_chunk(b, hkv, s)
+                lens = [c - 1, c, c + 1, 2 * c][:b]
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             q = torch.randn(b, h, hd, generator=g, device=dev).to(dt)
             k = torch.randn(b, s, hkv, hd, generator=g, device=dev).to(dt)
@@ -778,12 +850,15 @@ def phase_decode_attention(torch, np, dev):
             torch.cuda.synchronize()
             err = _err(got, want)
             _hold("decode_attention", err, dname, name)
-            if name == "empty_row" and bool(got[0].any()):
-                raise AssertionError("decode_attention: a length-0 row "
-                                     "is not 0")
+            for row, n in enumerate(lens):
+                if n <= 0 and bool(got[row].any()):
+                    raise AssertionError(f"decode_attention: the length-0 "
+                                         f"row {row} of {name} is not 0")
+            splits = {"chunk": split_chunk(b, hkv, s),
+                      "splits": n_splits(b, hkv, s)}
             if not timed:
                 edge.append({"case": name, "dtype": dname,
-                             "lengths": lens, "max_abs_err": err})
+                             "lengths": lens, "max_abs_err": err, **splits})
                 continue
             kern = lambda: decode_attention(q, k, v, lengths)
             plain = lambda: decode_attention_plain(q, k, v, lengths)
@@ -801,7 +876,7 @@ def phase_decode_attention(torch, np, dev):
             main.append({
                 "case": name, "dtype": dname, "B": b, "H": h, "Hkv": hkv,
                 "S": s, "hd": hd, "lengths": lens, "max_abs_err": err,
-                **_timings(torch, kern, plain, DECODE_KERNELS),
+                **splits, **_timings(torch, kern, plain, DECODE_KERNELS),
                 **_library(torch, lib),
                 "bound_ms": bound, "bound_by": by, "bytes": n_bytes})
     emit("decode_attention", tolerance=ATTN_TOL, shapes=main, edge=edge)
@@ -1286,7 +1361,7 @@ def main() -> int:
             ("hub_route", hr, "src/repro_torch/kernels/csrc/hub_route.cu",
              "src/repro/kernels/hub_route.py:78"),
             ("flash_attention", fa,
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:91"),
             ("decode_attention", da,
              "src/repro_torch/kernels/csrc/decode_attention.cu",

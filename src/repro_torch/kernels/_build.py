@@ -5,9 +5,10 @@ PyTorch headers), so one ``nvcc`` per source takes seconds.  Sources
 are compiled at first use, all at once (one ``nvcc`` process per
 source, started together), into ``build/repro_torch_kernels/`` at the
 root of the checkout.  A library's file name carries a hash of its
-source and the flags, and is written under a temporary name and then
-``os.replace``d into place, so concurrent processes never load a
-half-written library and a changed source is rebuilt.
+source, of every shared header (``csrc/*.cuh``, which a source may
+include) and of the flags, and is written under a temporary name and
+then ``os.replace``d into place, so concurrent processes never load a
+half-written library and a changed source or header is rebuilt.
 
 Nothing here catches a failed build: a missing ``nvcc`` or a compile
 error raises.
@@ -28,8 +29,8 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("minskew", "hub_route", "flash_attention", "decode_attention",
-           "rglru_scan", "mlstm_kernel")
+SOURCES = ("minskew", "hub_route", "flash_attention", "flash_attention_sm90",
+           "decode_attention", "rglru_scan", "mlstm_kernel")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -56,6 +57,9 @@ def find_nvcc() -> str:
 def _lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -1,13 +1,14 @@
-// Blockwise (flash) attention for Hopper (sm_90a), float32 or bfloat16.
+// Blockwise (flash) attention for Hopper (sm_90a) in float32 on the CUDA
+// cores; bfloat16 runs on the tensor cores in flash_attention_sm90.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (_kernel, wrapper flash_attention_flat).  For q (BH, Sq, hd) and k, v
-// (BHkv, Sk, hd), all contiguous and of one dtype, query row b reads kv
+// (_kernel, wrapper flash_attention_flat) for float32 inputs.  For q (BH,
+// Sq, hd) and k, v (BHkv, Sk, hd), all contiguous, query row b reads kv
 // row b / (BH / BHkv), so GQA never replicates K or V in memory:
 //   out[b, i] = sum_j p_ij v[b/qpk, j],  p = softmax_j(scale * q_i . k_j)
 // over the visible keys j: j < Sk; j <= i when causal (top-left aligned,
-// also when Sq != Sk); j > i - window when window > 0.  Sums in float32,
-// output in the input dtype.  A row with no visible key gives 0.
+// also when Sq != Sk); j > i - window when window > 0.  A row with no
+// visible key gives 0.
 //
 // Design.  One block of 256 threads per (b, tile of BQ = 64 query
 // rows).  The block walks the key tiles of BK = 64 keys itself, which
@@ -36,11 +37,10 @@
 // is bound by operations.  This first kernel does those operations as
 // float32 FMAs on the CUDA cores, fed from shared memory (about 4 loads
 // per 16 FMAs in the score loop), so it is bound by shared-memory issue
-// and the float32 rate, far from the tensor-core bound; mma.sync /
-// wgmma tiles fed by TMA are later work.  The (B, S, H, hd) ->
-// (BH, S, hd) transposes around it are copies made by the caller
-// (repro_torch.kernels.ops.flash_attention).
-#include <cuda_bf16.h>
+// and the float32 rate, far from the tensor-core bound.  Tensor cores
+// would round the inputs to TF32, which the float32 parity runs cannot
+// take.  The (B, S, H, hd) -> (BH, S, hd) transposes around it are copies
+// made by the caller (repro_torch.kernels.flash_attention_bshd).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,14 +55,8 @@
 #define FULL 0xffffffffu  // every warp runs the shuffles converged
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 static size_t smem_bytes(int hd) {
   // q: BQ x (hd+1), K: BK x (hd+1), V: BK x hd, all float32
@@ -242,13 +236,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int bh,
                                       int bhkv, int sq, int sk, int hd,
                                       int causal, int window, double scale,
-                                      int is_bf16, void* stream) {
+                                      void* stream) {
   if (hd <= 0 || hd > MAX_HD || hd % 8 != 0 || bhkv <= 0 || bh % bhkv != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, bh, bhkv, sq, sk, hd, causal,
-                                 window, (float)scale, st);
   return launch<float>(q, k, v, out, bh, bhkv, sq, sk, hd, causal, window,
-                       (float)scale, st);
+                       (float)scale, (cudaStream_t)stream);
 }

@@ -1,20 +1,30 @@
-"""Blockwise (flash) attention: the CUDA kernel and its wrapper.
+"""Blockwise (flash) attention: the CUDA kernels and their wrappers.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 (``_kernel``, wrapper ``flash_attention_flat``): causal and sliding-window
-softmax attention over flattened (BH, S, hd) queries, GQA through the kv
-row ``b // q_per_kv``, key tiles outside the band skipped, float32 sums
-and output in q's dtype.  Prefill runs it once per layer.
+softmax attention, GQA through the kv head ``h // q_per_kv``, key tiles
+outside the band skipped, float32 sums and output in q's dtype.  Prefill
+runs it once per layer.
 
-Bound on the H100: operations (about 2 B H S^2 hd FLOPs over the causal
-half).  The first kernel (``csrc/flash_attention.cu``) does them as
-float32 FMAs from shared memory, with the online-softmax state in
-registers; see the source note.
+Bound on the H100: operations (about 4 hd FLOPs per visible (query, key)
+pair and head).  Two kernels, split by dtype:
 
-On a CPU tensor the wrapper computes the plain version
+- bfloat16: ``csrc/flash_attention_sm90.cu``, both products on the tensor
+  cores (``wgmma``) with the online softmax on the accumulator in
+  registers; it reads q, k, v and writes the output in place through their
+  strides, so the (B, S, H, hd) entry point :func:`flash_attention_bshd`
+  makes no transposing copy and the flat (BH, S, hd) one passes its
+  tensors as (1, S, BH, hd) views;
+- float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores over
+  contiguous flat (BH, S, hd) tensors (the (B, S, H, hd) entry point
+  transposes for it), which keeps the float32 arithmetic of the parity
+  runs (tensor-core TF32 would change it).
+
+On a CPU tensor the wrappers compute the plain version
 (:func:`repro_torch.kernels.ref.attention_flat_plain`); on a CUDA tensor
-it launches the kernel or raises.  Both paths check dtypes and shapes
-first.  ``flash_attention_flat.launches`` counts launches.
+they launch a kernel or raise.  Both paths check dtypes and shapes first.
+``flash_attention_flat.launches`` counts the launches of either kernel
+from either entry point.
 """
 from __future__ import annotations
 
@@ -29,17 +39,30 @@ from repro_torch.kernels.ref import attention_flat_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HD = 256
-BQ = 64                       # query rows per block (csrc/flash_attention.cu)
+BQ = 64                       # query rows per block (both kernels)
+MAX_GRID_YZ = 65535
+ERR_ENCODE = 20000            # csrc/flash_attention_sm90.cu: + a CUresult
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    """The configured launcher, set up once."""
+def _lib_f32():
+    """The float32 launcher, set up once."""
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   ctypes.c_double, _I, _P]
+                   ctypes.c_double, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bf16():
+    """The bfloat16 tensor-core launcher, set up once."""
+    fn = _build.load("flash_attention_sm90").flash_attention_sm90_launch
+    fn.argtypes = [_P, _P, _P, _P, *([_L] * 12), _I, _I, _I, _I, _I, _I,
+                   _I, _I, ctypes.c_double, _P]
     fn.restype = _I
     return fn
 
@@ -50,9 +73,10 @@ def check_head_dim(name: str, hd: int) -> None:
                          f"in 8..{MAX_HD}")
 
 
-def _check(q, k, v):
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("flash_attention: q, k, v must be 3-D (BH, S, hd)")
+def _check_common(q, k, v, ndim, layout):
+    if q.dim() != ndim or k.dim() != ndim or v.dim() != ndim:
+        raise ValueError(f"flash_attention: q, k, v must be {ndim}-D "
+                         f"{layout}")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype}, expected one "
                         f"of {DTYPES}")
@@ -63,46 +87,138 @@ def _check(q, k, v):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
                              f"{q.device}")
-    bh, _, hd = q.shape
-    if k.shape != v.shape or k.shape[2] != hd:
+    if k.shape != v.shape or k.shape[-1] != q.shape[-1]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    check_head_dim("flash_attention", q.shape[-1])
+
+
+def _check(q, k, v):
+    _check_common(q, k, v, 3, "(BH, S, hd)")
+    bh = q.shape[0]
     if k.shape[0] == 0 or bh % k.shape[0] != 0:
         raise ValueError(f"flash_attention: BH={bh} is not a multiple of "
                          f"BHkv={k.shape[0]}")
-    check_head_dim("flash_attention", hd)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
 
 
+def _check_bshd(q, k, v):
+    _check_common(q, k, v, 4, "(B, S, H, hd)")
+    if k.shape[0] != q.shape[0]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in B")
+    h, hkv = q.shape[2], k.shape[2]
+    if hkv == 0 or h % hkv != 0:
+        raise ValueError(f"flash_attention: H={h} is not a multiple of "
+                         f"Hkv={hkv}")
+
+
 def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
-    """q (BH, Sq, hd); k/v (BHkv, Sk, hd), BH % BHkv == 0 -> (BH, Sq, hd)
-    in q's dtype (float32 or bfloat16; hd a multiple of 8 up to 256)."""
+    """q (BH, Sq, hd); k/v (BHkv, Sk, hd), BH % BHkv == 0, contiguous ->
+    (BH, Sq, hd) in q's dtype (float32 or bfloat16; hd a multiple of 8 up
+    to 256).  Query row b reads kv row b // (BH / BHkv)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_flat_plain(q, k, v, causal=causal, window=window)
-    return _launch(q, k, v, causal, window)
+    _on_cuda(q)
+    if q.dtype == torch.float32:
+        return _launch_f32(q, k, v, causal, window)
+    out = torch.empty_like(q)
+
+    def rows(t):                        # (BH, S, hd) as (1, S, BH, hd)
+        return _aligned(t.transpose(0, 1).unsqueeze(0))
+    _launch_bf16(rows(q), rows(k), rows(v), out.transpose(0, 1).unsqueeze(0),
+                 causal, window)
+    return out
 
 
-def _launch(q, k, v, causal, window):
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, hd); k/v (B, Sk, Hkv, hd), H % Hkv == 0 -> (B, Sq, H,
+    hd) in q's dtype; query head h reads kv head h // (H / Hkv).
+
+    bfloat16 on the card reads the tensors in place through their
+    strides.  The kernel copies 16 bytes at a time, so a tensor whose
+    innermost stride is not 1, whose other strides are not multiples of 8
+    elements or whose base is not 16-byte aligned is first copied to a
+    contiguous one (a (B, S, H, hd) view of a projection's output needs
+    none).  float32 on the card, and the CPU's plain version, take flat
+    (B*H, S, hd) copies."""
+    _check_bshd(q, k, v)
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        b, s, h, hd = q.shape
+        out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+        _launch_bf16(_aligned(q), _aligned(k), _aligned(v), out, causal,
+                     window)
+        return out
+    b, s, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qf = q.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(b * hkv, sk, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(b * hkv, sk, hd).contiguous()
+    of = flash_attention_flat(qf, kf, vf, causal=causal, window=window)
+    return of.reshape(b, h, s, hd).transpose(1, 2)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if the bf16 kernel can read it in place, else a
+    contiguous copy."""
+    ok = (t.stride(3) == 1
+          and all(t.stride(i) > 0 and t.stride(i) % 8 == 0 for i in range(3))
+          and t.data_ptr() % 16 == 0)
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _on_cuda(q):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def _launch_bf16(q, k, v, out, causal, window):
+    """The tensor-core kernel on (B, S, H, hd) views of aligned tensors."""
+    _on_cuda(q)
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: B={b}, H={h} exceed the launch "
+                         f"grid")
+    if sq == 0 or b == 0:
+        return out
+    if sk == 0:                         # no key is visible: zeros
+        return out.zero_()
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib_bf16()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), *strides, b, h, hkv, sq, sk, hd,
+                          int(causal), int(window), 1.0 / math.sqrt(hd),
+                          stream)
+    if err != 0:
+        what = (f"tensor map refused, CUresult {err - ERR_ENCODE}"
+                if err >= ERR_ENCODE else f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {what}")
+    flash_attention_flat.launches += 1
+    return out
+
+
+def _launch_f32(q, k, v, causal, window):
     bh, sq, hd = q.shape
     bhkv, sk, _ = k.shape
-    if -(-sq // BQ) > 65535:
+    if -(-sq // BQ) > MAX_GRID_YZ:
         raise ValueError(f"flash_attention: Sq={sq} exceeds the launch grid")
     out = torch.empty_like(q)
     if sq == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), bh, bhkv, sq, sk, hd, int(causal),
-                     int(window), 1.0 / math.sqrt(hd),
-                     int(q.dtype == torch.bfloat16), stream)
+        err = _lib_f32()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), bh, bhkv, sq, sk, hd, int(causal),
+                         int(window), 1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")

@@ -15,6 +15,9 @@ import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention_flat
+# (B, S, H, hd) attention: bf16 on the card in place, else flat copies
+from repro_torch.kernels.flash_attention import \
+    flash_attention_bshd as flash_attention
 from repro_torch.kernels.hub_route import hub_route
 from repro_torch.kernels.minskew import minskew
 from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise
@@ -23,20 +26,6 @@ from repro_torch.kernels.rglru_scan import rglru_scan
 
 __all__ = ["decode_attention", "flash_attention", "flash_attention_flat",
            "hub_route", "minskew", "mlstm", "rglru"]
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B,S,H,hd); k/v (B,Sk,Hkv,hd) -> (B,S,H,hd).  The heads move
-    next to the batch ((B*H, S, hd), a copy) for the flat kernel and
-    back."""
-    b, s, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    qf = q.transpose(1, 2).reshape(b * h, s, hd).contiguous()
-    kf = k.transpose(1, 2).reshape(b * hkv, sk, hd).contiguous()
-    vf = v.transpose(1, 2).reshape(b * hkv, sk, hd).contiguous()
-    of = flash_attention_flat(qf, kf, vf, causal=causal, window=window)
-    return of.reshape(b, h, s, hd).transpose(1, 2)
 
 
 def rglru(log_a: torch.Tensor, b: torch.Tensor,

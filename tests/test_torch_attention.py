@@ -11,6 +11,8 @@ float32 (the same float32 sums taken in another order), 2e-2 in
 bfloat16 (one rounding of the output to bfloat16, 2^-8 relative, on
 values of order 1).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -242,3 +244,139 @@ def test_wrappers_launch_or_raise_off_cpu():
         decode_attention(**meta)
     assert (flash_attention_flat.launches,
             decode_attention.launches) == counts
+
+
+# ------------------------------------- (B, S, H, hd) views read in place
+
+
+def _views(kind, b, s, h, hkv, hd, rng):
+    """q, k, v as non-contiguous (B, S, H, hd) views: slices of one fused
+    projection output, or heads-first storage transposed."""
+    if kind == "fused":
+        x = rng.standard_normal((b, s, h + 2 * hkv, hd)).astype(np.float32)
+        return x, (lambda t: (t[:, :, :h], t[:, :, h:h + hkv],
+                              t[:, :, h + hkv:]))
+    x = rng.standard_normal((b, h + 2 * hkv, s, hd)).astype(np.float32)
+    return x, (lambda t: tuple(
+        u.transpose(1, 2) if isinstance(u, torch.Tensor)
+        else u.transpose(0, 2, 1, 3)
+        for u in (t[:, :h], t[:, h:h + hkv], t[:, h + hkv:])))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kind,window", [("fused", 0), ("fused", 7),
+                                         ("heads_first", 0),
+                                         ("heads_first", 7)])
+def test_ops_flash_attention_strided_views_vs_jax(kind, window, dtype):
+    """``ops.flash_attention`` on (B, S, H, hd) views whose strides are not
+    contiguous (on the card the bf16 kernel reads them in place; here the
+    plain version) against the JAX package's ``ops.flash_attention``."""
+    rng = np.random.default_rng(21)
+    b, s, h, hkv, hd = 2, 40, 4, 2, 24
+    x, split = _views(kind, b, s, h, hkv, hd, rng)
+    xj, xt = _pair(x, dtype)
+    qt, kt, vt = split(xt)
+    qj, kj, vj = split(xj)
+    assert not qt.is_contiguous() and not kt.is_contiguous()
+    got = ops.flash_attention(qt, kt, vt, causal=True, window=window)
+    want = jops.flash_attention(qj, kj, vj, causal=True, window=window)
+    assert got.shape == (b, s, h, hd) and got.dtype == qt.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("view,copied", [
+    ("contiguous", False), ("fused_slice", False), ("heads_first", False),
+    ("stride_not_8", True), ("inner_stride", True), ("base_offset", True)])
+def test_flash_bshd_reads_aligned_views_in_place(view, copied):
+    """The bf16 kernel reads a view in place when its innermost stride is
+    1, its other strides are multiples of 8 elements and its base is
+    16-byte aligned; any other view is copied to a contiguous tensor
+    first (the rule of ``flash_attention_bshd``'s docstring)."""
+    from repro_torch.kernels.flash_attention import _aligned
+    base = torch.zeros(2, 10, 12, 16, dtype=torch.bfloat16)
+    t = {"contiguous": base,
+         "fused_slice": base[:, :, 4:8],
+         "heads_first": base.permute(0, 2, 1, 3),
+         "stride_not_8": torch.zeros(2, 10, 3, 20,
+                                     dtype=torch.bfloat16)[..., :16],
+         "inner_stride": base.transpose(2, 3)[:, :, :12, :],
+         "base_offset": base.reshape(-1)[1:1 + 2 * 10 * 12 * 8].view(
+             2, 10, 12, 8)}[view]
+    out = _aligned(t)
+    assert (out is not t) == copied
+    assert torch.equal(out, t)
+    if copied:
+        assert out.is_contiguous() and out.data_ptr() % 16 == 0
+
+
+# ------------------------------------------- flash-decoding split + combine
+
+
+def _split_combine(q, k, v, lengths, chunk):
+    """The split kernel's arithmetic rebuilt in plain torch: one partial
+    (m, l, acc) per chunk of ``chunk`` positions and head, the empty
+    partial (m = -1e30, l = 0, acc = 0) for a chunk at or past the row's
+    length, then the combine kernel's merge."""
+    b, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qpk = h // hkv
+    n_split = max(1, -(-s // chunk))
+    m = torch.full((b, h, n_split), -1e30)
+    l = torch.zeros(b, h, n_split)
+    acc = torch.zeros(b, h, n_split, hd)
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), s)
+        for i in range(n_split):
+            first, last = i * chunk, min((i + 1) * chunk, n)
+            if first >= last:
+                continue
+            kk = k[bi, first:last].float().repeat_interleave(qpk, dim=1)
+            vv = v[bi, first:last].float().repeat_interleave(qpk, dim=1)
+            sc = torch.einsum("hd,nhd->hn", q[bi].float(), kk) / math.sqrt(hd)
+            m[bi, :, i] = sc.max(-1).values
+            p = torch.exp(sc - m[bi, :, i, None])
+            l[bi, :, i] = p.sum(-1)
+            acc[bi, :, i] = torch.einsum("hn,nhd->hd", p, vv)
+    big = m.max(-1, keepdim=True).values
+    w = torch.exp(m - big)
+    den = (w * l).sum(-1).clamp_min(1e-30)
+    return (w[..., None] * acc).sum(2) / den[..., None]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,hd", [(6, 4, 2, 200, 16),
+                                          (6, 16, 8, 1056, 16)])
+def test_decode_split_combine_vs_jax(b, h, hkv, s, hd):
+    """Lengths 0, 1, chunk - 1, chunk, chunk + 1 and S, with the kernel's
+    own chunk for this shape: every row within 2e-5 of the JAX oracle,
+    the length-0 row exactly 0 (no NaN from an all-empty combine)."""
+    from repro_torch.kernels.decode_attention import n_splits, split_chunk
+    chunk = split_chunk(b, hkv, s)
+    assert chunk % 32 == 0 and n_splits(b, hkv, s) == -(-s // chunk)
+    lengths = np.array([0, 1, chunk - 1, chunk, chunk + 1, s], np.int32)
+    rng = np.random.default_rng(s + h)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+    got = _split_combine(*(torch.from_numpy(x) for x in (q, k, v)),
+                         lengths, chunk).numpy()
+    want = np.asarray(kref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths)))
+    assert np.all(got[0] == 0)
+    np.testing.assert_allclose(got[1:], want[1:], **TOL["float32"])
+    plain = decode_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                             torch.from_numpy(lengths)).numpy()
+    np.testing.assert_allclose(got, plain, **TOL["float32"])
+
+
+@pytest.mark.parametrize("b,hkv,s,want_chunk", [
+    (4, 1, 2048, 32),        # recurrentgemma's ring buffer (MQA)
+    (4, 8, 1056, 128),       # qwen3_4b's decode
+    (4, 8, 8192, 512),
+    (1, 1, 0, 32)])
+def test_decode_split_fills_the_card(b, hkv, s, want_chunk):
+    """The split grid comes from the shapes alone and gives at least one
+    block per SM of an H100 (132) at both serving shapes."""
+    from repro_torch.kernels.decode_attention import n_splits, split_chunk
+    assert split_chunk(b, hkv, s) == want_chunk
+    if s >= 1024:
+        assert b * hkv * n_splits(b, hkv, s) >= 132
+    assert n_splits(b, hkv, s) >= 1

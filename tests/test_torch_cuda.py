@@ -96,3 +96,93 @@ def test_recurrent_models_card_vs_cpu(dev, arch):
         lg, cg = registry.decode_step(cfg, params, tok.to(dev), cg)
         lc, cc = registry.decode_step(cfg, cpu, tok, cc)
         _close(lg.cpu(), lc)
+
+
+# (B, H, Hkv, Sq, Sk, hd, causal, window): head dims that are not multiples
+# of 16 (the bf16 kernel pads them to 64), one query row, fewer queries
+# than keys under the causal mask, a window narrower than a key tile,
+# cross attention, MQA at hd 256 with a window
+FLASH_EDGE = [(2, 4, 2, 100, 100, 8, True, 0),
+              (1, 4, 1, 130, 130, 24, True, 0),
+              (1, 4, 2, 70, 70, 40, False, 0),
+              (2, 4, 2, 1, 1, 64, True, 0),
+              (2, 4, 2, 1, 77, 64, False, 0),
+              (1, 4, 2, 50, 300, 128, True, 0),
+              (1, 4, 2, 200, 200, 64, True, 5),
+              (1, 2, 2, 64, 192, 32, False, 0),
+              (1, 4, 1, 300, 300, 256, True, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal,window", FLASH_EDGE)
+def test_flash_kernel_vs_plain(dev, dtype, b, h, hkv, sq, sk, hd, causal,
+                               window):
+    from repro_torch.kernels.flash_attention import flash_attention_flat
+    from repro_torch.kernels.ref import attention_flat_plain
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(b * h, sq, hd, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b * hkv, sk, hd, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    before = flash_attention_flat.launches
+    got = flash_attention_flat(q, k, v, causal=causal, window=window)
+    assert flash_attention_flat.launches == before + 1
+    _close(got, attention_flat_plain(q, k, v, causal=causal, window=window),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["fused", "heads_first"])
+def test_flash_strided_views_vs_plain(dev, dtype, kind):
+    """``ops.flash_attention`` on non-contiguous (B, S, H, hd) views (bf16
+    reads them in place) against the plain version of contiguous copies."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_flat_plain
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, s, h, hkv, hd = 2, 150, 8, 2, 64
+    if kind == "fused":
+        x = torch.randn(b, s, h + 2 * hkv, hd, generator=g, device=dev)
+        q, k, v = (x[:, :, :h], x[:, :, h:h + hkv], x[:, :, h + hkv:])
+    else:
+        x = torch.randn(b, h + 2 * hkv, s, hd, generator=g, device=dev)
+        q, k, v = (t.transpose(1, 2) for t in (x[:, :h], x[:, h:h + hkv],
+                                               x[:, h + hkv:]))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=True, window=40)
+    want = attention_flat_plain(
+        *(t.transpose(1, 2).reshape(-1, s, hd).contiguous()
+          for t in (q, k, v)), causal=True, window=40)
+    _close(got, want.view(b, h, s, hd).transpose(1, 2), dtype)
+
+
+# (B, H, Hkv, S, hd, lengths): "edges" is chunk - 1, chunk, chunk + 1 and
+# 2 chunk for the shape's own split chunk; a length-0 row among full rows,
+# lengths above S (clamped), qpk = 1, the MQA ring buffer
+DECODE_EDGE = [(4, 32, 8, 1056, 128, "edges"),
+               (4, 16, 1, 2048, 256, "edges"),
+               (4, 32, 8, 1056, 128, [1056, 0, 1056, 1056]),
+               (3, 8, 2, 300, 64, [301, 5000, 300]),
+               (2, 8, 8, 300, 128, [299, 3]),
+               (3, 4, 2, 100, 32, [0, 0, 0])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,hd,lens", DECODE_EDGE)
+def test_decode_kernel_vs_plain(dev, dtype, b, h, hkv, s, hd, lens):
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      split_chunk)
+    from repro_torch.kernels.ref import decode_attention_plain
+    if lens == "edges":
+        c = split_chunk(b, hkv, s)
+        lens = [c - 1, c, c + 1, 2 * c]
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(b, h, hd, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b, s, hkv, hd, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, lengths)
+    assert decode_attention.launches == before + 1
+    _close(got, decode_attention_plain(q, k, v, lengths), dtype)
+    for row, n in enumerate(lens):
+        if n <= 0:
+            assert not bool(got[row].any())
