@@ -10,7 +10,7 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — the seven CUDA sources of the six kernels compiled from
+2. build — the eight CUDA sources of the six kernels compiled from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
 3. minskew — kernel vs plain version on the card, bit-equal, timed;
 4. hub_route — the same;
@@ -43,9 +43,11 @@ One JSON line per phase:
    shape (B=4, S=3,072, W=4,096) and tests/test_kernels.py's shapes
    (padded S, h0), float32;
 11. mlstm_chunkwise — kernel vs plain version at xlstm's prefill shape
-   (BH=16, S=1,024, hd=1,024), bfloat16 and float32, and edge shapes (S
-   not a multiple of the chunk, an initial carry, small hd), with the
-   final (C, n);
+   (BH=16, S=1,024, hd=1,024), bfloat16 (the tensor-core kernel) and
+   float32 (the first design), and edge shapes (S not a multiple of the
+   chunk, an initial carry, small hd, in bfloat16 a head dim above the
+   tensor-core kernel's limit), with the final (C, n) and the source
+   that ran;
 12. serve — the serving path: ``BatchServer`` on full-width, full-depth
    qwen3_4b in bfloat16 (random weights from a seed), 4 prompts of 1,024
    tokens, 32 new tokens; one warm-up ``generate`` and 3 timed ones,
@@ -661,12 +663,22 @@ PARITY_XLSTM = (2, 2, 200, 8, {"slstm_every": 2})
 RGLRU_CASES = [(4, 3072, 4096, False, True), (2, 128, 64, False, False),
                (2, 128, 64, True, False), (1, 300, 32, True, False),
                (3, 64, 128, False, False), (2, 16, 8, True, False)]
-#: (BH, S, hd, with an initial carry, timed): xlstm's prefill shape
-#: (B=4 x H=4 heads of hd 1,024), tests/test_kernels.py's mlstm shapes,
-#: and S not a multiple of the kernel's chunk
-MLSTM_CASES = [(16, 1024, 1024, False, True), (2, 128, 32, False, False),
-               (4, 256, 64, False, False), (1, 64, 128, False, False),
-               (2, 200, 64, True, False), (3, 130, 96, True, False)]
+#: (BH, S, hd, with an initial carry, timed, dtypes): xlstm's prefill
+#: shape (B=4 x H=4 heads of hd 1,024), tests/test_kernels.py's mlstm
+#: shapes, S not a multiple of the kernel's chunk and hd 8, in both dtypes;
+#: in bfloat16 also the prefill shape with an initial carry, and a head dim
+#: above the tensor-core kernel's limit (SM90_MAX_HD), where the first
+#: design runs
+BOTH = ("bfloat16", "float32")
+MLSTM_CASES = [(16, 1024, 1024, False, True, BOTH),
+               (2, 128, 32, False, False, BOTH),
+               (4, 256, 64, False, False, BOTH),
+               (1, 64, 128, False, False, BOTH),
+               (2, 200, 64, True, False, BOTH),
+               (3, 130, 96, True, False, BOTH),
+               (2, 64, 8, True, False, BOTH),
+               (16, 1024, 1024, True, False, ("bfloat16",)),
+               (1, 128, 2880, True, False, ("bfloat16",))]
 
 
 def sdpa(q, k, v, **kw):
@@ -884,7 +896,10 @@ def phase_decode_attention(torch, np, dev):
 
 
 RGLRU_KERNELS = ("rglru_kernel",)
-MLSTM_KERNELS = ("scores_kernel", "carry_kernel")
+#: the device kernels of both routes: mlstm_kernel.cu's and
+#: mlstm_kernel_sm90.cu's
+MLSTM_KERNELS = ("scores_kernel", "carry_kernel", "mlstm_scores_sm90",
+                 "mlstm_den_sm90", "mlstm_carry_sm90")
 
 
 def phase_rglru_scan(torch, np, dev):
@@ -938,15 +953,20 @@ def mlstm_work(bh: int, s: int, hd: int, elt: int, carry_in: bool):
 def phase_mlstm_chunkwise(torch, np, dev):
     """Kernel vs plain version (``mlstm_flat_plain``: the same tail
     padding, the chunkwise form at the kernel's chunk) on the card, h
-    and the final C and n.  No single PyTorch call computes a chunkwise
-    mLSTM, so there is no library time."""
+    and the final C and n; each case names the source that ran.  The
+    bound is at the peak of the dtype's route (bfloat16 on the tensor
+    cores, float32 on the CUDA cores).  No single PyTorch call computes
+    a chunkwise mLSTM, so there is no library time."""
     from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise
     from repro_torch.kernels.mlstm_kernel import mlstm_flat_plain
+    from repro_torch.kernels.mlstm_kernel import uses_sm90
     g = torch.Generator(device=dev).manual_seed(7)
     main, edge = [], []
     for dt in (torch.bfloat16, torch.float32):
         dname = _dname(torch, dt)
-        for bh, s, hd, carry_in, timed in MLSTM_CASES:
+        for bh, s, hd, carry_in, timed, dtypes in MLSTM_CASES:
+            if dname not in dtypes:
+                continue
             q, k, v = (torch.randn(bh, s, hd, generator=g, device=dev)
                        .mul(0.3).to(dt) for _ in range(3))
             ig = torch.randn(bh, s, generator=g, device=dev)
@@ -958,6 +978,12 @@ def phase_mlstm_chunkwise(torch, np, dev):
             h, (c, n) = mlstm_chunkwise(q, k, v, ig, fg, c0, n0)
             hw, (cw, nw) = mlstm_flat_plain(q, k, v, ig, fg, c0, n0)
             torch.cuda.synchronize()
+            want = ("mlstm_kernel_sm90.cu" if uses_sm90(dt, hd)
+                    else "mlstm_kernel.cu")
+            if mlstm_chunkwise.source != want:
+                raise AssertionError(f"mlstm_chunkwise at {(bh, s, hd)} "
+                                     f"{dname} ran {mlstm_chunkwise.source}"
+                                     f", expected {want}")
             errs = {}
             for part, got, want, pdt in (("h", h, hw, dname),
                                          ("C", c, cw, "float32"),
@@ -967,7 +993,9 @@ def phase_mlstm_chunkwise(torch, np, dev):
                       (bh, s, hd, carry_in, part), scale)
                 errs[part] = err
             case = {"dtype": dname, "BH": bh, "S": s, "hd": hd,
-                    "carry_in": carry_in, "max_abs_err": errs["h"],
+                    "carry_in": carry_in,
+                    "kernel": mlstm_chunkwise.source,
+                    "max_abs_err": errs["h"],
                     "max_abs_err_C": errs["C"], "max_abs_err_n": errs["n"]}
             if not timed:
                 edge.append(case)
@@ -975,7 +1003,7 @@ def phase_mlstm_chunkwise(torch, np, dev):
             del h, c, n, hw, cw, nw
             n_bytes, flops = mlstm_work(bh, s, hd, q.element_size(),
                                         carry_in)
-            bound, by = attn_bound_ms(n_bytes, flops, "float32")
+            bound, by = attn_bound_ms(n_bytes, flops, dname)
             main.append({**case, **_timings(
                 torch, lambda: mlstm_chunkwise(q, k, v, ig, fg, c0, n0),
                 lambda: mlstm_flat_plain(q, k, v, ig, fg, c0, n0),
@@ -1369,7 +1397,7 @@ def main() -> int:
             ("rglru_scan", rg, "src/repro_torch/kernels/csrc/rglru_scan.cu",
              "src/repro/kernels/rglru_scan.py:60"),
             ("mlstm_chunkwise", ml,
-             "src/repro_torch/kernels/csrc/mlstm_kernel.cu",
+             f"src/repro_torch/kernels/csrc/{ml['kernel']}",
              "src/repro/kernels/mlstm_kernel.py:79")):
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": tpu,

@@ -60,7 +60,6 @@
 //
 // Not yet here: that overlap at HDP = 256, larger key tiles, a
 // persistent grid (see PERF.md).
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -381,34 +380,6 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // -- host side -----------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver-API function, through the runtime's
-// entry-point query: the library needs no -lcuda.
-static EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-#define ERR_ENCODE 20000  // + CUresult: a tensor map was refused
 
 // A rank-4 map of a (B, S, H, hd) bf16 tensor (dims listed innermost
 // first) with boxes of 64 head-dim columns x 1 head x 64 rows x 1 batch row

@@ -1,15 +1,19 @@
-// Hopper (sm_90a) building blocks shared by the port's attention kernels,
-// as inline PTX: no header beyond the CUDA runtime's, so each nvcc stays
+// Hopper (sm_90a) building blocks shared by the port's kernels,
+// as inline PTX, and the host-side lookup of the tensor-map encoder: no
+// header beyond the CUDA runtime's and cuda.h's types, so each nvcc stays
 // at seconds.
 //
 // - cp.async: 16-byte global -> shared copies, zero-filled past src_bytes
-//   (decode_attention.cu);
+//   (decode_attention.cu, mlstm_kernel_sm90.cu);
+// - ldmatrix and mma.sync m16n8k16 bf16 products with fp32 accumulators
+//   (mlstm_kernel_sm90.cu);
 // - wgmma: shared-memory matrix descriptors of operands under the 128-byte
 //   swizzle (what TMA's SWIZZLE_128B writes) and the m64nNk16 bf16
 //   products with fp32 accumulators (flash_attention_sm90.cu);
 // - mbarrier, TMA (cp.async.bulk.tensor) and setmaxnreg for its producer
-//   warpgroup.
+//   warpgroup (flash_attention_sm90.cu; mlstm_kernel_sm90.cu's tile ring).
 #pragma once
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,6 +34,48 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -- ldmatrix and mma.sync -----------------------------------------------------
+
+// Four 8 x 8 b16 matrices from shared memory; lanes 8 m .. 8 m + 7 give the
+// row addresses of matrix m, and r[m] is its fragment: row lane / 4,
+// columns 2 (lane % 4) and + 1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// The same, transposed: r[m] holds rows 2 (lane % 4) and + 1 of column
+// lane / 4 of matrix m.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// Two matrices; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+// D (16 x 8, fp32) += A (16 x 16, row) * B (16 x 8, col), bf16.  With
+// g = lane / 4, t = lane % 4: a = {(g, 2t), (g + 8, 2t), (g, 2t + 8),
+// (g + 8, 2t + 8)} (each a pair of k-adjacent elements), b = {(2t, g),
+// (2t + 8, g)} (k-adjacent pairs), d = {(g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // wgmma matrix descriptor for a B128-swizzled operand at shared address
@@ -62,6 +108,35 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 // -- mbarrier and TMA --------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver-API function, through the runtime's
+// entry-point query: the library needs no -lcuda.
+static inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+#define ERR_ENCODE 20000  // + CUresult: a tensor map was refused
+
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -101,6 +176,21 @@ __device__ __forceinline__ void tma_load4(uint32_t dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A 2-D TMA box load into shared memory, completed on an mbarrier.
+__device__ __forceinline__ void tma_load2(uint32_t dst, const void* map,
+                                          uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// Orders this thread's generic-proxy accesses to shared memory before
+// later async-proxy (TMA) ones.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Warp specialisation: a warpgroup gives registers up or takes them.

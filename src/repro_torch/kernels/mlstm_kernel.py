@@ -10,11 +10,21 @@ starts from a zero carry and keeps its final value in VMEM scratch, it
 takes an initial (C, n) and returns the final one: the model's prefill
 hands it to decode.
 
-Bound on the H100: operations (4 hd^2 + 4 L hd FLOPs per token and
-head, in float32).  At hd = 1,024 the carry C is 4 MB per head, more
-than a block's shared memory, so the kernel (``csrc/mlstm_kernel.cu``)
-splits the work by value columns of C and keeps C in device memory; see
-the source note.
+Two kernels, chosen by dtype and head dim only (:func:`uses_sm90`):
+
+- bf16 with hd a multiple of 8 up to ``SM90_MAX_HD`` = 2,816 runs
+  ``csrc/mlstm_kernel_sm90.cu``: every product on the tensor cores
+  (``mma.sync`` bf16 -> fp32), each column block's slab of C held in
+  shared memory for the whole walk over the chunks, q and k brought by
+  TMA, and the gated factor of the carry update split into two bf16
+  parts so that C keeps float32 accuracy (see the source note, and
+  tests/test_torch_mlstm_split.py);
+- float32 at any hd, and every other bf16 head dim, run the first design,
+  ``csrc/mlstm_kernel.cu``: float32 FMAs on the CUDA cores with C in
+  device memory.
+
+Nothing is chosen on failure: a build or launch error raises.  Bound on
+the H100: operations (4 hd^2 + 4 L hd FLOPs per token and head).
 
 The kernel's chunk is ``CHUNK`` = 64 (the model's 512 x 512 score
 matrix does not fit a block).  Where S is not a multiple of it, the
@@ -26,8 +36,9 @@ which carry the state through unchanged (large finite values, so no
 On a CPU tensor the wrapper computes the plain version at the kernel's
 chunk (:func:`mlstm_flat_plain`, over
 :func:`repro_torch.kernels.ref.mlstm_chunkwise_plain`); on a CUDA
-tensor it launches the kernel or raises.  Both paths check dtypes
-and shapes first.  ``mlstm_chunkwise.launches`` counts launches.
+tensor it launches a kernel or raises.  Both paths check dtypes
+and shapes first.  ``mlstm_chunkwise.launches`` counts launches and
+``mlstm_chunkwise.source`` names the source of the last one.
 """
 from __future__ import annotations
 
@@ -44,8 +55,9 @@ from repro_torch.kernels.ref import mlstm_chunkwise_plain
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = (torch.float32, torch.bfloat16)
-CHUNK = 64                    # L in csrc/mlstm_kernel.cu
+CHUNK = 64                    # L in csrc/mlstm_kernel{,_sm90}.cu
 MAX_HD = 8192
+SM90_MAX_HD = 2816            # mlstm_sm90_max_hd() in csrc/mlstm_kernel_sm90.cu
 PAD_GATE = 1e30               # i_raw = -PAD_GATE, f_raw = +PAD_GATE
 
 
@@ -64,6 +76,32 @@ def _lib():
     fn.argtypes = [_P] * 11 + [_I, _I, _I, ctypes.c_double, _I, _P]
     fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_sm90():
+    """The bf16 tensor-core launcher, set up once; checks that the
+    source's chunk is ``CHUNK`` and its head-dim limit ``SM90_MAX_HD``."""
+    lib = _build.load("mlstm_kernel_sm90")
+    for name in ("mlstm_sm90_chunk_len", "mlstm_sm90_max_hd"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = _I
+    if (lib.mlstm_sm90_chunk_len(), lib.mlstm_sm90_max_hd()) != (
+            CHUNK, SM90_MAX_HD):
+        raise RuntimeError(
+            f"mlstm_kernel_sm90.cu's chunk and head-dim limit are "
+            f"{lib.mlstm_sm90_chunk_len()}, {lib.mlstm_sm90_max_hd()}; the "
+            f"wrapper expects {CHUNK}, {SM90_MAX_HD}")
+    fn = lib.mlstm_sm90_launch
+    fn.argtypes = [_P] * 13 + [_I, _I, _I, ctypes.c_double, _P]
+    fn.restype = _I
+    return fn
+
+
+def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a CUDA call at this dtype and head dim runs
+    ``csrc/mlstm_kernel_sm90.cu`` (else ``csrc/mlstm_kernel.cu``)."""
+    return dtype == torch.bfloat16 and hd % 8 == 0 and hd <= SM90_MAX_HD
 
 
 def _check(q, k, v, i_raw, f_raw, c0, n0):
@@ -152,30 +190,52 @@ def _launch(q, k, v, i_raw, f_raw, c0, n0, s):
     bh, sp, hd = q.shape
     if bh > 65535:
         raise ValueError(f"mlstm_chunkwise: BH={bh} exceeds the launch grid")
-    c = (torch.zeros((bh, hd, hd), dtype=torch.float32, device=dev)
-         if c0 is None else c0.clone())
-    n = torch.empty((bh, hd), dtype=torch.float32, device=dev)
-    if n0 is None:
-        n0 = torch.zeros((bh, hd), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
     h = torch.empty_like(q)
     if bh == 0 or sp == 0:
-        return h[:, :s], (c, n.copy_(n0))
+        return h[:, :s], (
+            torch.zeros((bh, hd, hd), **f32) if c0 is None else c0.clone(),
+            torch.zeros((bh, hd), **f32) if n0 is None else n0.clone())
+    n = torch.empty((bh, hd), **f32)
     nc = sp // CHUNK
-    sc = torch.empty((bh, nc, CHUNK, CHUNK), dtype=torch.float32, device=dev)
-    den = torch.empty((bh, nc, CHUNK), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     i_raw.data_ptr(), f_raw.data_ptr(), sc.data_ptr(),
-                     den.data_ptr(), n0.data_ptr(), c.data_ptr(),
-                     n.data_ptr(), h.data_ptr(), bh, sp, hd,
-                     1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
-                     stream)
+        if uses_sm90(q.dtype, hd):
+            source = "mlstm_kernel_sm90.cu"
+            c = torch.empty((bh, hd, hd), **f32)
+            sc = torch.empty((bh, nc, CHUNK, CHUNK), dtype=torch.bfloat16,
+                             device=dev)
+            gates = torch.empty((bh, nc, 4, CHUNK), **f32)
+            ksum = torch.empty((bh, nc, hd), **f32)
+            err = _lib_sm90()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), i_raw.data_ptr(),
+                f_raw.data_ptr(), sc.data_ptr(), gates.data_ptr(),
+                ksum.data_ptr(), None if c0 is None else c0.data_ptr(),
+                None if n0 is None else n0.data_ptr(), c.data_ptr(),
+                n.data_ptr(), h.data_ptr(), bh, sp, hd, 1.0 / math.sqrt(hd),
+                stream)
+        else:
+            source = "mlstm_kernel.cu"
+            c = (torch.zeros((bh, hd, hd), **f32) if c0 is None
+                 else c0.clone())
+            if n0 is None:
+                n0 = torch.zeros((bh, hd), **f32)
+            sc = torch.empty((bh, nc, CHUNK, CHUNK), **f32)
+            den = torch.empty((bh, nc, CHUNK), **f32)
+            err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         i_raw.data_ptr(), f_raw.data_ptr(), sc.data_ptr(),
+                         den.data_ptr(), n0.data_ptr(), c.data_ptr(),
+                         n.data_ptr(), h.data_ptr(), bh, sp, hd,
+                         1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+                         stream)
     if err != 0:
         raise RuntimeError(
-            f"mlstm_chunkwise kernel launch failed: CUDA error {err}")
+            f"mlstm_chunkwise kernel launch failed ({source}): CUDA error "
+            f"{err}")
     mlstm_chunkwise.launches += 1
+    mlstm_chunkwise.source = source
     return h[:, :s], (c, n)
 
 
 mlstm_chunkwise.launches = 0
+mlstm_chunkwise.source = None

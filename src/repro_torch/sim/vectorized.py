@@ -484,7 +484,15 @@ def _quantize(low: Dict[str, Any],
             f"shrink the scenario")
     exact = all(q % tick == 0 for q in pos)
     tier = "exact" if exact else "tolerance"
-    tol = 0 if exact else tick * len(qs)
+    # Rounding each additive quantity moves an event time by at most
+    # tick / 2 per quantity on its path: tick * len(qs) bounds that.  A
+    # DegradeLink threshold (q_ceil below) is compared with a rounded
+    # send time, so a send within that error of ``from_vtime`` can land
+    # on the other side and gain or lose the whole ``extra_ns``.  Each
+    # extra appears at most once on any max-plus path, so adding every
+    # extra's ns once bounds the flips too.
+    extras_ns = sum(abs(e) for m in low["msgs"] for _, e in m.extras)
+    tol = 0 if exact else tick * len(qs) + extras_ns
 
     def q_add(x: int) -> int:           # additive quantity: round-half
         return (int(x) + tick // 2) // tick

@@ -51,13 +51,21 @@ def test_rglru_kernel_vs_plain(dev, b, s, w, with_h0):
     _close(got, rglru_plain(log_a, bv, h0))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,s,hd,carry", [(2, 200, 64, True),
-                                           (3, 128, 32, False),
-                                           (1, 70, 100, True)])
+#: both dtypes at small shapes; in bfloat16 also xlstm_1_3b's head dim
+#: (the tensor-core kernel) and one above its limit (the first design)
+MLSTM_SHAPES = [(2, 200, 64, True), (3, 128, 32, False), (1, 70, 100, True)]
+
+
+@pytest.mark.parametrize(
+    "dtype,bh,s,hd,carry",
+    [(dt, *shape) for dt in (torch.float32, torch.bfloat16)
+     for shape in MLSTM_SHAPES]
+    + [(torch.bfloat16, 2, 128, 1024, True),
+       (torch.bfloat16, 1, 64, 2880, True)])
 def test_mlstm_kernel_vs_plain(dev, dtype, bh, s, hd, carry):
     from repro_torch.kernels.mlstm_kernel import (mlstm_chunkwise,
-                                                  mlstm_flat_plain)
+                                                  mlstm_flat_plain,
+                                                  uses_sm90)
     g = torch.Generator(device=dev).manual_seed(1)
     q, k, v = (torch.randn(bh, s, hd, generator=g, device=dev).mul(0.3)
                .to(dtype) for _ in range(3))
@@ -69,6 +77,9 @@ def test_mlstm_kernel_vs_plain(dev, dtype, bh, s, hd, carry):
     before = mlstm_chunkwise.launches
     h, (c, n) = mlstm_chunkwise(q, k, v, ig, fg, c0, n0)
     assert mlstm_chunkwise.launches == before + 1
+    assert mlstm_chunkwise.source == ("mlstm_kernel_sm90.cu"
+                                      if uses_sm90(dtype, hd)
+                                      else "mlstm_kernel.cu")
     hw, (cw, nw) = mlstm_flat_plain(q, k, v, ig, fg, c0, n0)
     _close(h, hw, dtype)
     _close(c, cw)

@@ -281,3 +281,41 @@ def test_sweep_refusals():
             **CPU)
     with pytest.raises(ValueError):
         rack(T).sweep([], **CPU)
+
+
+# ------------------------------------------------ the tolerance tier's bound
+
+
+def _c1_draw(M):
+    """A recorded fuzz draw (topology (2, 2, 2000, 500), workload (4, 5000,
+    2, 0)) whose hub DegradeLink threshold flips under a 100 ns tick: a
+    send that rounds across ``from_vtime`` gains or loses the whole
+    ``extra_ns``."""
+    from repro.core.ipc import LinkSpec as JLink
+    from repro_torch.core.ipc import LinkSpec as TLink
+    link = JLink if M is J else TLink
+    wl = M.RackRing(n_racks=2, hosts_per_rack=2, n_iters=4, compute_ns=5000,
+                    cross_every=2, skew_bound_ns=0)
+    topo = M.Topology.racks(
+        2, 2, intra_link=link(bandwidth_bps=80e9 * 8, latency_ns=2000),
+        cross_link=link(bandwidth_bps=25e9 * 8, latency_ns=500), n_cpus=4)
+    sc = M.Scenario("fuzz", (M.DegradeLink(fabric="hub", extra_ns=25000,
+                                           from_vtime=30000),))
+    return M.Simulation(topo, wl, sc, placement=wl.default_placement())
+
+
+def test_tolerance_tier_bounds_degrade_threshold_flip():
+    from repro_torch.sim.vectorized import compile_simulation
+    tol = compile_simulation(_c1_draw(T), tick_ns=100).tol_ns
+    vec = _c1_draw(T).run(engine="vectorized", tick_ns=100, verify=True,
+                          **CPU)
+    ref = _c1_draw(T).run(engine="async")
+    assert vec.tier == "tolerance"
+    assert vec.status == ref.status and vec.progress == ref.progress
+    devs = {t: abs(vec.tasks[t]["vtime"] - info["vtime"])
+            for t, info in ref.tasks.items()}
+    assert max(devs.values()) > 0          # the draw does flip
+    assert all(d <= tol for d in devs.values()), (devs, tol)
+    assert abs(vec.vtime_ns - ref.vtime_ns) <= tol
+    want = _c1_draw(J).run(engine="vectorized", tick_ns=100)
+    assert _strip(vec) == _strip(want)
