@@ -39,9 +39,14 @@ One JSON line per phase:
    ring buffer (S=2,048, MQA, hd 256) and the edge shapes: lengths on
    and either side of the split kernel's chunk boundaries, a length-0
    row among full rows, lengths above S, qpk = 1;
-10. rglru_scan — kernel vs plain version at recurrentgemma's prefill
-   shape (B=4, S=3,072, W=4,096) and tests/test_kernels.py's shapes
-   (padded S, h0), float32;
+10. rglru_scan — the chained scan kernel vs plain version at
+   recurrentgemma's prefill shape (B=4, S=3,072, W=4,096, timed, and
+   with h0), a long-chain shape (B=1, S=16,384, W=1,024; the kernel
+   timed, the plain loop over S timed once), odd W
+   with S not a multiple of the chunk, S = 1, S below one chunk and
+   tests/test_kernels.py's shapes (padded S, h0), float32; each case
+   with the kernel's T_c, W_t and grid, and two calls at the prefill
+   shape bit-equal;
 11. mlstm_chunkwise — kernel vs plain version at xlstm's prefill shape
    (BH=16, S=1,024, hd=1,024), bfloat16 (the tensor-core kernel) and
    float32 (the first design), and edge shapes (S not a multiple of the
@@ -658,11 +663,19 @@ SERVE_XLSTM = ("xlstm_1_3b", 4, 1024, 32)
 PARITY = (2, 2, 128, 8, {})
 PARITY_RGLRU = (3, 2, 2080, 4, {})
 PARITY_XLSTM = (2, 2, 200, 8, {"slstm_every": 2})
-#: (B, S, W, with h0, timed): recurrentgemma's prefill shape and
-#: tests/test_kernels.py's rglru shapes
+#: (B, S, W, with h0, timed): recurrentgemma's prefill shape, a long
+#: chain (64 chunks at the kernel's T_c of 256; "kernel": the plain loop
+#: over its 16,384 steps is timed once, not profiled), tests/test_kernels.py's
+#: rglru shapes, then the prefill shape with h0, odd W with S not a
+#: multiple of the chunk, S = 1 and S below one chunk
 RGLRU_CASES = [(4, 3072, 4096, False, True), (2, 128, 64, False, False),
                (2, 128, 64, True, False), (1, 300, 32, True, False),
-               (3, 64, 128, False, False), (2, 16, 8, True, False)]
+               (3, 64, 128, False, False), (2, 16, 8, True, False),
+               (4, 3072, 4096, True, False), (1, 16384, 1024, False, "kernel"),
+               (2, 515, 4099, True, False), (3, 1, 4096, True, False),
+               (2, 100, 4096, False, False)]
+#: recurrentgemma's prefill shape, where two calls must give the same bits
+RGLRU_SERVE_SHAPE = (4, 3072, 4096)
 #: (BH, S, hd, with an initial carry, timed, dtypes): xlstm's prefill
 #: shape (B=4 x H=4 heads of hd 1,024), tests/test_kernels.py's mlstm
 #: shapes, S not a multiple of the kernel's chunk and hd 8, in both dtypes;
@@ -722,11 +735,15 @@ def _hold(name: str, err: float, dtype: str, where,
                              f"({dtype}): max abs err {err} (scale {scale})")
 
 
-def _timings(torch, kern, plain, names, iters: int = ITERS) -> dict:
+def _kernel_timings(torch, kern, names, iters: int = ITERS) -> dict:
     return {"kernel_ms": timed_ms(torch, kern, iters),
             "kernel_batch_ms": batch_ms(torch, kern),
             **dict(zip(("kernel_device_ms", "kernel_device_records"),
-                       device_ms(torch, kern, names))),
+                       device_ms(torch, kern, names)))}
+
+
+def _timings(torch, kern, plain, names, iters: int = ITERS) -> dict:
+    return {**_kernel_timings(torch, kern, names, iters),
             "plain_ms": timed_ms(torch, plain, iters),
             "plain_batch_ms": batch_ms(torch, plain),
             "plain_device_ms": device_ms(torch, plain)[0]}
@@ -895,7 +912,7 @@ def phase_decode_attention(torch, np, dev):
     return main[0]
 
 
-RGLRU_KERNELS = ("rglru_kernel",)
+RGLRU_KERNELS = ("rglru_chained_kernel",)
 #: the device kernels of both routes: mlstm_kernel.cu's and
 #: mlstm_kernel_sm90.cu's
 MLSTM_KERNELS = ("scores_kernel", "carry_kernel", "mlstm_scores_sm90",
@@ -904,10 +921,12 @@ MLSTM_KERNELS = ("scores_kernel", "carry_kernel", "mlstm_scores_sm90",
 
 def phase_rglru_scan(torch, np, dev):
     """Kernel vs plain version (``rglru_plain``, a loop over S) on the
-    card, float32.  No single PyTorch call computes a linear recurrence,
-    so there is no library time."""
+    card, float32; each case with the kernel's tiling (T_c, W_t, grid),
+    and at the prefill shape a second call that must give the same bits
+    (the carry is chained in a fixed order).  No single PyTorch call
+    computes a linear recurrence, so there is no library time."""
     from repro_torch.kernels.ref import rglru_plain
-    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rglru_scan import plan, rglru_scan
     g = torch.Generator(device=dev).manual_seed(6)
     main, edge = [], []
     for b, s, w, with_h0, timed in RGLRU_CASES:
@@ -916,23 +935,35 @@ def phase_rglru_scan(torch, np, dev):
         h0 = (torch.randn(b, w, generator=g, device=dev) if with_h0
               else None)
         got = rglru_scan(log_a, bv, h0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         want = rglru_plain(log_a, bv, h0)
+        ev[1].record()
         torch.cuda.synchronize()
         err, scale = _err(got, want), float(want.abs().max())
         _hold("rglru_scan", err, "float32", (b, s, w, with_h0), scale)
         case = {"B": b, "S": s, "W": w, "h0": with_h0, "max_abs_err": err,
-                "scale": scale}
+                "scale": scale, **plan(b, s, w)}
+        if (b, s, w) == RGLRU_SERVE_SHAPE:
+            if not torch.equal(got, rglru_scan(log_a, bv, h0)):
+                raise AssertionError(f"rglru_scan: two calls at {(b, s, w)}"
+                                     f" (h0 {with_h0}) differ")
+            case["bit_equal_two_calls"] = True
         if not timed:
             edge.append(case)
             continue
         del got, want
         n_bytes = 4 * (3 * b * s * w + (b * w if with_h0 else 0))
         bound, by = attn_bound_ms(n_bytes, 2 * b * s * w, "float32")
-        main.append({**case, **_timings(
-            torch, lambda: rglru_scan(log_a, bv, h0),
-            lambda: rglru_plain(log_a, bv, h0), RGLRU_KERNELS, 10),
-            "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
-            "library_ms": None})
+        kern = lambda: rglru_scan(log_a, bv, h0)
+        if timed == "kernel":                   # plain: the one call above
+            times = {**_kernel_timings(torch, kern, RGLRU_KERNELS, 10),
+                     "plain_ms": ev[0].elapsed_time(ev[1])}
+        else:
+            times = _timings(torch, kern, lambda: rglru_plain(log_a, bv, h0),
+                             RGLRU_KERNELS, 10)
+        main.append({**case, **times, "bound_ms": bound, "bound_by": by,
+                     "bytes": n_bytes, "library_ms": None})
     emit("rglru_scan", tolerance=ATTN_TOL["float32"], shapes=main,
          edge=edge)
     return main[0]

@@ -35,20 +35,37 @@ def _close(got, want, dtype=torch.float32):
     assert err <= TOL[dtype] * scale, (err, scale)
 
 
-@pytest.mark.parametrize("b,s,w,with_h0", [(2, 300, 32, True),
-                                           (3, 64, 128, False),
-                                           (1, 7, 4100, True)])
-def test_rglru_kernel_vs_plain(dev, b, s, w, with_h0):
-    from repro_torch.kernels.ref import rglru_plain
-    from repro_torch.kernels.rglru_scan import rglru_scan
+def _rglru_inputs(dev, b, s, w, with_h0):
     g = torch.Generator(device=dev).manual_seed(0)
     log_a = -torch.rand(b, s, w, generator=g, device=dev) * 0.3
     bv = torch.randn(b, s, w, generator=g, device=dev)
     h0 = torch.randn(b, w, generator=g, device=dev) if with_h0 else None
+    return log_a, bv, h0
+
+
+#: small shapes, odd W with S not a multiple of the chunk, and a long
+#: chain of chunks (64 at the kernel's T_c of 256)
+@pytest.mark.parametrize("b,s,w,with_h0", [(2, 300, 32, True),
+                                           (3, 64, 128, False),
+                                           (1, 7, 4100, True),
+                                           (2, 515, 4099, True),
+                                           (1, 16384, 1024, False)])
+def test_rglru_kernel_vs_plain(dev, b, s, w, with_h0):
+    from repro_torch.kernels.ref import rglru_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    log_a, bv, h0 = _rglru_inputs(dev, b, s, w, with_h0)
     before = rglru_scan.launches
     got = rglru_scan(log_a, bv, h0)
     assert rglru_scan.launches == before + 1
     _close(got, rglru_plain(log_a, bv, h0))
+
+
+def test_rglru_kernel_two_calls_bit_equal(dev):
+    """The carry is chained in one fixed order: recurrentgemma's prefill
+    shape gives the same bits on every call."""
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    log_a, bv, h0 = _rglru_inputs(dev, 4, 3072, 4096, True)
+    assert torch.equal(rglru_scan(log_a, bv, h0), rglru_scan(log_a, bv, h0))
 
 
 #: both dtypes at small shapes; in bfloat16 also xlstm_1_3b's head dim
