@@ -10,22 +10,31 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — the eight CUDA sources of the six kernels compiled from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
-3. minskew — kernel vs plain version on the card, bit-equal, timed;
-4. hub_route — the same;
-5. main path — a 16,384-vtask ``ChipRingTraining`` (16 pods x 1,024
+2. build — the nine CUDA sources (the six kernels and the empty
+   ``launch_floor`` kernel) compiled from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` each, in parallel);
+3. launch_floor — an empty kernel launched through the same ctypes
+   route, timed: what one launch costs, beside every bytes bound;
+4. minskew — kernel vs plain version on the card, bit-equal, timed at
+   the main path's (V=1, N=16,384, S=1), (1, 16,384, 256) and
+   (8, 4,096, 64), the edge cases of tests/test_kernels.py, a sequence
+   of calls of growing and shrinking size, and one device operation a
+   call (the profiler sees only the kernel, no fill);
+5. hub_route — the same at the main path's M=65,600 and M=2^20, one
+   link for 2^20 messages, M around a tile, a sequence of sizes (the
+   kept scratch under smaller and larger calls), the float32 pin;
+6. main path — a 16,384-vtask ``ChipRingTraining`` (16 pods x 1,024
    chips on 16 hosts) through ``Simulation.run(engine="vectorized")``
    on the card, with every kernel launch counter set to 0 just before
    and read just after, and its report equal to the same run on the CPU;
    then the same path stage by stage (compile, round loop, decompile)
    with the card's busy time in the loop from ``torch.profiler``;
-6. sweep — the 64-variant ``RackRing`` straggler sweep on the card, each
+7. sweep — the 64-variant ``RackRing`` straggler sweep on the card, each
    lane equal to the same sweep on the CPU (plain versions, ``links``
    included), to its solo run, and four lanes to the ``async`` engine;
-7. check_interval — the round loop of the main path and of the sweep
+8. check_interval — the round loop of the main path and of the sweep
    timed with the stop condition read back every 1, 4 and 16 rounds;
-8. flash_attention — kernel vs plain version at the serving path's
+9. flash_attention — kernel vs plain version at the serving path's
    prefill shape (B=4, S=1024, H=32, Hkv=8, hd=128, causal), at S=4096
    and at the edge shapes of tests/test_kernels.py, bfloat16 and
    float32, timed beside ``scaled_dot_product_attention`` (with a
@@ -34,12 +43,12 @@ One JSON line per phase:
    untimed at hd 8, 24 and 40, one query row, Sq < Sk under the causal
    mask and a window narrower than a key tile, and through
    ``ops.flash_attention`` on non-contiguous (B, S, H, hd) views;
-9. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
+10. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
    hd=128, S=1056, ragged lengths), at S=8192, at recurrentgemma's
    ring buffer (S=2,048, MQA, hd 256) and the edge shapes: lengths on
    and either side of the split kernel's chunk boundaries, a length-0
    row among full rows, lengths above S, qpk = 1;
-10. rglru_scan — the chained scan kernel vs plain version at
+11. rglru_scan — the chained scan kernel vs plain version at
    recurrentgemma's prefill shape (B=4, S=3,072, W=4,096, timed, and
    with h0), a long-chain shape (B=1, S=16,384, W=1,024; the kernel
    timed, the plain loop over S timed once), odd W
@@ -47,33 +56,34 @@ One JSON line per phase:
    tests/test_kernels.py's shapes (padded S, h0), float32; each case
    with the kernel's T_c, W_t and grid, and two calls at the prefill
    shape bit-equal;
-11. mlstm_chunkwise — kernel vs plain version at xlstm's prefill shape
+12. mlstm_chunkwise — kernel vs plain version at xlstm's prefill shape
    (BH=16, S=1,024, hd=1,024), bfloat16 (the tensor-core kernel) and
    float32 (the first design), and edge shapes (S not a multiple of the
    chunk, an initial carry, small hd, in bfloat16 a head dim above the
    tensor-core kernel's limit), with the final (C, n) and the source
    that ran;
-12. serve — the serving path: ``BatchServer`` on full-width, full-depth
+13. serve — the serving path: ``BatchServer`` on full-width, full-depth
    qwen3_4b in bfloat16 (random weights from a seed), 4 prompts of 1,024
    tokens, 32 new tokens; one warm-up ``generate`` and 3 timed ones,
    each with the kernel counters set to 0 just before and read just
    after; then one profiled ``generate`` and profiled decode steps;
-13. serve_parity — the same entry point at full width, 2 layers,
+14. serve_parity — the same entry point at full width, 2 layers,
    float32: the card's logits and greedy tokens against the CPU run of
    the same parameters (the plain versions);
-14. serve_rglru, serve_xlstm — the same serving phase on full-width,
+15. serve_rglru, serve_xlstm — the same serving phase on full-width,
    full-depth recurrentgemma_9b (4 prompts of 3,072 tokens, past the
    2,048 window) and xlstm_1_3b (4 prompts of 1,024 tokens), 32 new
    tokens each, every kernel's launches per ``generate`` checked;
-15. serve_parity_rglru, serve_parity_xlstm — card against CPU at full
+16. serve_parity_rglru, serve_parity_xlstm — card against CPU at full
    width, float32, cut depth: recurrentgemma (rec, rec, attn) with
    prompts of 2,080 tokens, which wrap the window; xlstm one mLSTM and
    one sLSTM block with prompts of 200 tokens, which the kernel pads;
-16. live_serve — ``record_live_serve`` on the card (smoke config), its
+17. live_serve — ``record_live_serve`` on the card (smoke config), its
    trace replayed bit-identically under the barrier and async engines;
-17. kernels — one object per kernel: launches on its paths, max error
-   against the plain version, times, the card's bound and the library
-   call's time.
+18. kernels — one object per kernel: launches on its paths (the main
+   path and the sweep for ``minskew`` and ``hub_route``), max error
+   against the plain version, times, the card's bound, the library
+   call's time and, for the engine's two kernels, the launch floor.
 
 It uses one card: the first visible one (``CUDA_VISIBLE_DEVICES`` is
 narrowed to it before CUDA starts).
@@ -195,8 +205,31 @@ def device_ms(torch, fn, names=None, iters: int = 20):
     return us / 1e3, records
 
 
-MINSKEW_KERNELS = ("minima_kernel", "elig_kernel")
-HUB_KERNELS = ("tile_aggregate", "scan_aggregates", "tile_output")
+MINSKEW_KERNELS = ("minskew_cluster_kernel",)
+HUB_KERNELS = ("hub_lookback_kernel",)
+
+
+def one_device_op(torch, fn, names, calls: int = 40) -> float:
+    """Holds ``fn`` to one device operation a call: over ``calls`` calls
+    every device record the profiler kept is one of ``names`` (no fill,
+    no memset, no copy) and there are at most ``calls`` of them; returns
+    the records per call.  It keeps only some records of a kernel
+    launched through ctypes, so the records' names and their count are
+    checked, never a single record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    seen = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+    if (not seen or sum(seen.values()) > calls
+            or any(not any(n in k for n in names) for k in seen)):
+        raise AssertionError(f"not one device operation a call: {seen}")
+    return sum(seen.values()) / calls
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -265,8 +298,12 @@ def minskew_edge_cases(np, rng):
             for name, a, b, c, d in cases]
 
 
-def hub_inputs(np, rng, m: int, n_links: int, one_per_link: bool = False):
-    """Messages sorted by (link, send); ~20% of durations are 163."""
+def hub_inputs(np, rng, m: int, n_links: int, one_per_link: bool = False,
+               ser_hi: int = 10_000):
+    """Messages sorted by (link, send); durations below ``ser_hi``, ~20%
+    of them 163.  A link's summed durations must stay within int32 (the
+    function's domain), so one link for many messages takes a lower
+    ``ser_hi``."""
     if one_per_link:
         link = np.arange(m, dtype=np.int32)
     else:
@@ -274,7 +311,7 @@ def hub_inputs(np, rng, m: int, n_links: int, one_per_link: bool = False):
     send = rng.integers(0, 1_000_000, m).astype(np.int32)
     order = np.lexsort((send, link))
     send, link = send[order], link[order]
-    ser = rng.integers(0, 10_000, m).astype(np.int32)
+    ser = rng.integers(0, ser_hi, m).astype(np.int32)
     ser[rng.random(m) < 0.2] = 163
     lat = rng.integers(0, 5_000, n_links).astype(np.int32)
     return send, ser, link, lat
@@ -312,6 +349,27 @@ def phase_build():
          libraries=[p.name for p in paths])
 
 
+def phase_launch_floor(torch, dev) -> float:
+    """An empty kernel (``csrc/launch_floor.cu``) launched through the
+    same ctypes route as the port's kernels: the least a launch costs on
+    this card.  Returns its device ms."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    fn = _build.load("launch_floor").launch_floor_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call():
+        err = fn(_build.stream_ptr(torch, dev))
+        if err != 0:
+            raise RuntimeError(f"launch_floor: CUDA error {err}")
+    dms = device_ms(torch, call, ("launch_floor_kernel",))[0]
+    emit("launch_floor", call_ms=timed_ms(torch, call),
+         batch_ms=batch_ms(torch, call), device_ms=dms)
+    return dms
+
+
 def check_minskew(torch, np, dev, vt, run, mem, skew):
     """Kernel vs plain version on ``dev``; returns (err, tensors)."""
     from repro_torch.kernels.minskew import minskew
@@ -334,26 +392,40 @@ def minskew_bytes(v: int, n: int, s: int) -> int:
     return v * (4 * n + n + n * s + 4 * s + 4 * s + n)
 
 
-def phase_minskew(torch, np, dev):
-    from repro_torch.kernels.minskew import minskew
+def phase_minskew(torch, np, dev, floor_ms: float):
+    from repro_torch.kernels.minskew import minskew, plan
     from repro_torch.kernels.ref import minskew_plain
     rng = np.random.default_rng(0)
     shapes = []
     for v, n, s in ((1, 16_384, 1), (1, 16_384, 256), (8, 4_096, 64)):
         err, t = check_minskew(torch, np, dev,
                                *minskew_inputs(np, rng, v, n, s))
+        again = minskew(*t)
+        if not all(torch.equal(a, b) for a, b in zip(again, minskew(*t))):
+            raise AssertionError(f"minskew at {(v, n, s)}: two calls differ")
         shapes.append({
             "V": v, "N": n, "S": s, "max_abs_err": err,
+            "cluster": plan(v, n, s).cluster,
             "kernel_ms": timed_ms(torch, lambda: minskew(*t)),
+            "kernel_batch_ms": batch_ms(torch, lambda: minskew(*t)),
             "plain_ms": timed_ms(torch, lambda: minskew_plain(*t)),
             "kernel_device_ms": device_ms(torch, lambda: minskew(*t),
                                           MINSKEW_KERNELS)[0],
             "plain_device_ms": device_ms(torch,
                                          lambda: minskew_plain(*t))[0],
-            "bound_ms": bound_ms(minskew_bytes(v, n, s))})
+            "records_per_call": one_device_op(
+                torch, lambda: minskew(*t), MINSKEW_KERNELS),
+            "bound_ms": bound_ms(minskew_bytes(v, n, s)),
+            "launch_floor_ms": floor_ms})
     for name, *arrs in minskew_edge_cases(np, rng):
         check_minskew(torch, np, dev, *arrs)
-    emit("minskew", shapes=shapes, edge_cases="bit_equal")
+    # growing and shrinking V*N*S on one stream, each call bit-equal
+    sequence = ((1, 16_384, 1), (8, 4_096, 64), (1, 3, 2), (1, 16_384, 256),
+                (64, 16, 3), (2, 700, 2_100), (1, 16_384, 1))
+    for v, n, s in sequence:
+        check_minskew(torch, np, dev, *minskew_inputs(np, rng, v, n, s))
+    emit("minskew", shapes=shapes, edge_cases="bit_equal",
+         sequence=[list(x) for x in sequence], one_device_op=True)
     return shapes[0]
 
 
@@ -363,37 +435,51 @@ def hub_bytes(m: int, n_links: int) -> int:
     return 16 * m + 4 * n_links
 
 
-def phase_hub_route(torch, np, dev):
-    from repro_torch.kernels.hub_route import hub_route
+def phase_hub_route(torch, np, dev, floor_ms: float):
+    from repro_torch.kernels.hub_route import TILE, hub_route
     from repro_torch.kernels.ref import hub_route_plain
     rng = np.random.default_rng(1)
     cases = [("main", 65_600, 16_416, False), ("large", 1 << 20, 4_096, False),
-             ("m1", 1, 1, False), ("m7", 7, 1, False), ("m129", 129, 1, False),
-             ("per_link", 4_099, 4_099, True)]
+             ("one_link", 1 << 20, 1, False), ("m1", 1, 1, False),
+             ("m7", 7, 1, False), ("m129", 129, 1, False),
+             ("tile-1", TILE - 1, 3, False), ("tile+1", TILE + 1, 2, False),
+             ("per_link", 4_099, 4_099, True),
+             # the sequence: smaller calls over the kept scratch's stale
+             # flags, then past its first capacity
+             ("seq7", 7, 1, False), ("seq1", 1, 1, False),
+             ("seq_large", 1 << 20, 4_096, False),
+             ("seq_main", 65_600, 16_416, False),
+             ("seq_grow", 9_000_000, 9_000, False),
+             ("seq_main2", 65_600, 16_416, False)]
     shapes = []
     for name, m, n_links, one in cases:
         send, ser, link, lat = (
             torch.from_numpy(x).to(dev)
-            for x in hub_inputs(np, rng, m, n_links, one))
+            for x in hub_inputs(np, rng, m, n_links, one,
+                                min(10_000, 2**30 * n_links // m)))
         ones = torch.ones(n_links, dtype=torch.float32, device=dev)
-        got = hub_route(send, ser, link, ones, lat, ser_ns=ser)
+
+        def call():
+            return hub_route(send, ser, link, ones, lat, ser_ns=ser)
+        got = call()
         want = hub_route_plain(send, ser, link, lat)
         err = max_abs_err(torch, got, want)
-        if err != 0:
+        if err != 0 or not torch.equal(got, call()):
             raise AssertionError(f"hub_route kernel != plain on {name}: "
-                                 f"max abs err {err}")
+                                 f"max abs err {err}, or two calls differ")
         if name in ("main", "large"):
             shapes.append({
                 "case": name, "M": m, "links": n_links, "max_abs_err": err,
-                "kernel_ms": timed_ms(torch, lambda: hub_route(
-                    send, ser, link, ones, lat, ser_ns=ser)),
+                "kernel_ms": timed_ms(torch, call),
+                "kernel_batch_ms": batch_ms(torch, call),
                 "plain_ms": timed_ms(torch, lambda: hub_route_plain(
                     send, ser, link, lat)),
-                "kernel_device_ms": device_ms(torch, lambda: hub_route(
-                    send, ser, link, ones, lat, ser_ns=ser), HUB_KERNELS)[0],
+                "kernel_device_ms": device_ms(torch, call, HUB_KERNELS)[0],
                 "plain_device_ms": device_ms(torch, lambda: hub_route_plain(
                     send, ser, link, lat))[0],
-                "bound_ms": bound_ms(hub_bytes(m, n_links))})
+                "records_per_call": one_device_op(torch, call, HUB_KERNELS),
+                "bound_ms": bound_ms(hub_bytes(m, n_links)),
+                "launch_floor_ms": floor_ms})
     # the float32 pin: 163 B at 1e9 B/s truncates to 162 on the f32
     # path and stays 163 with ser_ns
     z = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -404,6 +490,7 @@ def phase_hub_route(torch, np, dev):
     if (f32, exact) != (162, 163):
         raise AssertionError(f"163-ns pin: f32 {f32}, ser_ns {exact}")
     emit("hub_route", shapes=shapes, edge_cases="bit_equal",
+         cases=[c[0] for c in cases], one_device_op=True,
          pin_f32=f32, pin_ser_ns=exact)
     return shapes[0]
 
@@ -541,7 +628,7 @@ def phase_sweep(torch, dev, n_variants: int = 64, n_async: int = 4):
          configs_per_s=res.configs_per_s, cpu_wall_s=cpu.wall_s,
          launches=launches, lanes_equal_cpu=n_variants,
          lanes_equal_solo=n_variants, lanes_equal_async=n_async)
-    return axis, res.tick_ns
+    return axis, res.tick_ns, launches
 
 
 def loop_s(torch, run) -> tuple:
@@ -1388,11 +1475,13 @@ def main() -> int:
     dev = torch.device("cuda")
     name, _ = phase_device(torch, card)
     phase_build()
-    ms = phase_minskew(torch, np, dev)
-    hr = phase_hub_route(torch, np, dev)
+    floor = phase_launch_floor(torch, dev)
+    ms = phase_minskew(torch, np, dev, floor)
+    hr = phase_hub_route(torch, np, dev, floor)
     launches = phase_main_path(torch, dev)
     phase_main_path_breakdown(torch, dev)
-    phase_check_interval(torch, np, dev, *phase_sweep(torch, dev))
+    axis, tick, sweep_launches = phase_sweep(torch, dev)
+    phase_check_interval(torch, np, dev, axis, tick)
     fa = phase_flash_attention(torch, np, dev)
     da = phase_decode_attention(torch, np, dev)
     rg = phase_rglru_scan(torch, np, dev)
@@ -1408,8 +1497,8 @@ def main() -> int:
     phase_serve_parity(torch, np, dev, SERVE_XLSTM[0], PARITY_XLSTM,
                        "serve_parity_xlstm")
     phase_live_serve(torch, dev)
-    paths = {"minskew": {"main_path": launches["minskew"]},
-             "hub_route": {"main_path": launches["hub_route"]}}
+    paths = {k: {"main_path": launches[k], "sweep": sweep_launches[k]}
+             for k in ("minskew", "hub_route")}
     for kname in ("flash_attention", "decode_attention", "rglru_scan",
                   "mlstm_chunkwise"):
         paths[kname] = {p: c[kname] for p, c in by_path.items() if c[kname]}
@@ -1442,6 +1531,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row.get("bound_by", "bytes"),
             "library_ms": row.get("library_ms"),
+            **({"launch_floor_ms": row["launch_floor_ms"]}
+               if "launch_floor_ms" in row else {}),
             "shape": {k: row[k] for k in row
                       if k in ("V", "N", "S", "M", "links", "B", "H", "Hkv",
                                "hd", "dtype", "lengths", "W", "BH")}})

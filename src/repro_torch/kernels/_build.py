@@ -31,7 +31,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("minskew", "hub_route", "flash_attention", "flash_attention_sm90",
            "decode_attention", "rglru_scan", "mlstm_kernel",
-           "mlstm_kernel_sm90")
+           "mlstm_kernel_sm90", "launch_floor")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -102,3 +102,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def stream_ptr(torch, device) -> int:
+    """The cudaStream_t of ``device``'s current stream, as an int: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, read with
+    the accessor PyTorch's own generated kernels use, without building a
+    ``Stream`` object on every call (the engine's kernels are launched
+    once a round, and their host path is the round's cost)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

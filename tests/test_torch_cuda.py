@@ -214,3 +214,231 @@ def test_decode_kernel_vs_plain(dev, dtype, b, h, hkv, s, hd, lens):
     for row, n in enumerate(lens):
         if n <= 0:
             assert not bool(got[row].any())
+
+
+# ------------------------------------------------- the engine's two kernels
+#
+# Both are integer: bit-equal to their plain versions, or wrong.  Each
+# call must be one device operation (one kernel record, no fill, no
+# memset); the profiler keeps only some records of a kernel launched
+# through ctypes, so the check is on the records' names and their count
+# over many calls, never on one record.
+
+INF = 2**30
+
+
+def _device_records(fn, calls=40):
+    """{device record name: count} over ``calls`` calls of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def _minskew_inputs(dev, v, n, s, seed=0, offset=0):
+    """chip_smoke's recipe: ~10% INF vtimes, ~70% runnable, every vtask
+    in scope i % S and every 7th also in (i + 1) % S.  ``offset`` > 0
+    places membership ``offset`` bytes into its buffer (not 16-byte
+    aligned)."""
+    rng = np.random.default_rng(seed)
+    vt = rng.integers(0, 1_000_000, (v, n)).astype(np.int32)
+    vt[rng.random((v, n)) < 0.1] = INF
+    run = (rng.random((v, n)) < 0.7).astype(np.int8)
+    mem = np.zeros((n, s), np.int8)
+    idx = np.arange(n)
+    if s:
+        mem[idx, idx % s] = 1
+        sev = idx[idx % 7 == 0]
+        mem[sev, (sev + 1) % s] = 1
+    mem = np.broadcast_to(mem, (v, n, s)).copy()
+    skew = rng.integers(0, 50_000, (v, s)).astype(np.int32)
+    t = [torch.from_numpy(x).to(dev) for x in (vt, run, mem, skew)]
+    if offset:
+        buf = torch.zeros(t[2].numel() + offset, dtype=torch.int8,
+                          device=dev)
+        buf[offset:] = t[2].reshape(-1)
+        t[2] = buf[offset:].view(v, n, s)
+    return t
+
+
+def _minskew_equal(t, cluster=None):
+    from repro_torch.kernels import minskew as km
+    from repro_torch.kernels.ref import minskew_plain
+    before = km.minskew.launches
+    got = (km.minskew(*t) if cluster is None
+           else km._launch(*t, cluster=cluster))
+    if cluster is None and t[2].numel():
+        assert km.minskew.launches == before + 1
+    want = minskew_plain(*t)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+#: chip_smoke's shapes; the sweep's variant axis; R > N; S a multiple
+#: of 16 below one group a lane; S above one chunk of scopes
+@pytest.mark.parametrize("v,n,s", [(1, 16_384, 1), (1, 16_384, 256),
+                                   (8, 4_096, 64), (64, 16, 3), (1, 5, 3),
+                                   (3, 33, 16), (2, 700, 2_100),
+                                   (1, 100_000, 48)])
+def test_minskew_kernel_vs_plain(dev, v, n, s):
+    _minskew_equal(_minskew_inputs(dev, v, n, s))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("v,n,s,offset", [(2, 1_000, 48, 0),
+                                          (2, 1_000, 48, 1),
+                                          (1, 7, 1, 0), (3, 2_000, 5, 0)])
+def test_minskew_every_cluster_size(dev, cluster, v, n, s, offset):
+    _minskew_equal(_minskew_inputs(dev, v, n, s, offset=offset), cluster)
+
+
+def test_minskew_edge_cases(dev):
+    """tests/test_torch_kernels.py's edge cases: all masked, an empty
+    scope, sentinel vtimes, the int32 boundary, 1x1 and 3x2, and the
+    axes of size 0 (answered on the host)."""
+    rng = np.random.default_rng(3)
+
+    def case(vt, run, mem, skew):
+        t = [torch.tensor(np.asarray(x)[None], dtype=d, device=dev)
+             for x, d in ((vt, torch.int32), (run, torch.int8),
+                          (mem, torch.int8), (skew, torch.int32))]
+        return _minskew_equal(t)
+    minima, elig = case(rng.integers(0, 10_000, 40), np.zeros(40),
+                        rng.random((40, 6)) < 0.4, rng.integers(1, 500, 6))
+    assert bool((minima == INF).all()) and not bool(elig.any())
+    mem = rng.random((24, 4)) < 0.5
+    mem[:, 2] = False
+    minima, _ = case(rng.integers(0, 10_000, 24), np.ones(24), mem,
+                     np.zeros(4))
+    assert int(minima[0, 2]) == INF
+    vt = rng.integers(0, 10_000, 16)
+    vt[::2] = INF
+    run = np.ones(16)
+    run[::2] = 0
+    case(vt, run, np.ones((16, 3)), rng.integers(1, 100, 3))
+    _, elig = case(INF - 1 - rng.integers(0, 2_000, 12), np.ones(12),
+                   np.ones((12, 2)), np.full(2, 5_000))
+    assert bool(elig.all())
+    case([7], [1], [[1]], [0])
+    case(rng.integers(0, 100, 3), [1, 0, 1], rng.random((3, 2)) < 0.5,
+         [10, 20])
+    for v, n, s in ((0, 4, 3), (2, 0, 3), (2, 4, 0)):
+        _minskew_equal(_minskew_inputs(dev, v, n, s))
+
+
+def test_minskew_sizes_in_sequence_and_twice(dev):
+    """Calls that grow and shrink V*N*S, each bit-equal, and two calls
+    on the same inputs give the same bits."""
+    for v, n, s in ((1, 16_384, 1), (8, 4_096, 64), (1, 3, 2),
+                    (1, 16_384, 256), (64, 16, 3), (1, 16_384, 1)):
+        t = _minskew_inputs(dev, v, n, s, seed=v + n + s)
+        a = _minskew_equal(t)
+        b = _minskew_equal(t)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("v,n,s", [(1, 16_384, 1), (8, 4_096, 64)])
+def test_minskew_one_device_operation_a_call(dev, v, n, s):
+    from repro_torch.kernels.minskew import minskew
+    t = _minskew_inputs(dev, v, n, s)
+    seen = _device_records(lambda: minskew(*t))
+    assert seen and all("minskew_cluster_kernel" in k for k in seen), seen
+    assert sum(seen.values()) <= 40, seen
+
+
+def _hub_inputs(dev, m, n_links, one_per_link=False, offset=0, seed=1,
+                ser_hi=10_000):
+    """chip_smoke's recipe: messages sorted by (link, send), durations
+    below ``ser_hi``, ~20% of them 163.  A link's summed durations must
+    stay within int32, the function's domain (a queue that ends past
+    2^31 ns has no int32 answer), so one link for a million messages
+    takes ``ser_hi`` 1,000.  ``offset`` places each array ``offset``
+    int32s into its buffer (not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    link = (np.arange(m) if one_per_link
+            else np.sort(rng.integers(0, n_links, m))).astype(np.int32)
+    send = rng.integers(0, 1_000_000, m).astype(np.int32)
+    order = np.lexsort((send, link))
+    send, link = send[order], link[order]
+    ser = rng.integers(0, ser_hi, m).astype(np.int32)
+    ser[rng.random(m) < 0.2] = 163
+    lat = rng.integers(0, 5_000, n_links).astype(np.int32)
+    out = []
+    for x in (send, ser, link):
+        buf = torch.zeros(m + offset, dtype=torch.int32, device=dev)
+        buf[offset:] = torch.from_numpy(x).to(dev)
+        out.append(buf[offset:])
+    return out + [torch.from_numpy(lat).to(dev)]
+
+
+def _hub_equal(t):
+    from repro_torch.kernels.hub_route import hub_route
+    from repro_torch.kernels.ref import hub_route_plain
+    send, ser, link, lat = t
+    before = hub_route.launches
+    ones = torch.ones(lat.shape[0], device=send.device)
+    got = hub_route(send, ser, link, ones, lat, ser_ns=ser)
+    assert hub_route.launches == before + (1 if send.numel() else 0)
+    want = hub_route_plain(send, ser, link, lat)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    return got
+
+
+TILE = 1024
+
+
+#: chip_smoke's main and large shapes, one link for every message (the
+#: longest look-back), one message a link, M around a tile, and
+#: pointers that are not 16-byte aligned
+@pytest.mark.parametrize("m,links,one,offset,ser_hi", [
+    (65_600, 16_416, False, 0, 10_000), (1 << 20, 4_096, False, 0, 10_000),
+    (1 << 20, 1, False, 0, 1_000), (4_099, 4_099, True, 0, 10_000),
+    (1, 1, False, 0, 10_000), (7, 1, False, 0, 10_000),
+    (129, 1, False, 0, 10_000), (TILE - 1, 3, False, 0, 10_000),
+    (TILE, 1, False, 0, 10_000), (TILE + 1, 2, False, 0, 10_000),
+    (65_600, 16_416, False, 1, 10_000), (3 * TILE + 5, 1, False, 3, 10_000)])
+def test_hub_kernel_vs_plain(dev, m, links, one, offset, ser_hi):
+    from repro_torch.kernels import hub_route as kh
+    assert kh.TILE == TILE
+    _hub_equal(_hub_inputs(dev, m, links, one, offset, ser_hi=ser_hi))
+
+
+def test_hub_sizes_in_sequence_and_twice(dev):
+    """Shrinking and growing M on one stream (stale flags of a larger
+    call under a smaller one; the scratch grown past its first
+    capacity), each call bit-equal and each twice the same bits."""
+    for m, links in ((65_600, 16_416), (7, 1), (1, 1), (1 << 20, 4_096),
+                     (65_600, 16_416), (9_000_000, 1), (7, 1),
+                     (65_600, 16_416)):
+        t = _hub_inputs(dev, m, links, seed=m,
+                        ser_hi=min(10_000, 2**30 // m))
+        assert torch.equal(_hub_equal(t), _hub_equal(t))
+
+
+def test_hub_float32_pin(dev):
+    from repro_torch.kernels.hub_route import hub_route
+    z = torch.zeros(1, dtype=torch.int32, device=dev)
+    size = torch.tensor([163], dtype=torch.int32, device=dev)
+    bw = torch.tensor([1e9], dtype=torch.float32, device=dev)
+    assert int(hub_route(z, size, z, bw, z)[0]) == 162
+    assert int(hub_route(z, size, z, bw, z, ser_ns=size)[0]) == 163
+
+
+@pytest.mark.parametrize("m,links", [(65_600, 16_416), (1 << 20, 4_096)])
+def test_hub_one_device_operation_a_call(dev, m, links):
+    from repro_torch.kernels.hub_route import hub_route
+    send, ser, link, lat = _hub_inputs(dev, m, links)
+    ones = torch.ones(links, device=dev)
+    seen = _device_records(
+        lambda: hub_route(send, ser, link, ones, lat, ser_ns=ser))
+    assert seen and all("hub_lookback_kernel" in k for k in seen), seen
+    assert sum(seen.values()) <= 40, seen
