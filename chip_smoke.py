@@ -16,8 +16,8 @@ One JSON line per phase:
 3. launch_floor — an empty kernel launched through the same ctypes
    route, timed: what one launch costs, beside every bytes bound;
 4. minskew — kernel vs plain version on the card, bit-equal, timed at
-   the main path's (V=1, N=16,384, S=1), (1, 16,384, 256) and
-   (8, 4,096, 64), the edge cases of tests/test_kernels.py, a sequence
+   the main path's (V=1, N=16,384, S=1), (1, 16,384, 256),
+   (8, 4,096, 64) and the main-path campaign's (32, 16,384, 1), the edge cases of tests/test_kernels.py, a sequence
    of calls of growing and shrinking size, and one device operation a
    call (the profiler sees only the kernel, no fill);
 5. hub_route — the same at the main path's M=65,600 and M=2^20, one
@@ -34,7 +34,21 @@ One JSON line per phase:
    included), to its solo run, and four lanes to the ``async`` engine;
 8. check_interval — the round loop of the main path and of the sweep
    timed with the stop condition read back every 1, 4 and 16 rounds;
-9. flash_attention — kernel vs plain version at the serving path's
+9. campaign_main — a fault campaign over the main path
+   (``Campaign(engine="auto")``): one straggler chip (3x) in each of the
+   16 pods, alone or four pods at once, 32 points; the baseline on the
+   reference engine, then every point through the sweep fast path on the
+   card (both engine kernels launched), every swept lane's report
+   (vtimes included) and the campaign's report equal to the same
+   campaign's on the CPU;
+10. campaign — the registry's ``rack_ring@v1`` with its grid: the
+   sweepable points on the card, the clock-skew points on the reference
+   engine ("mixed"), the JAX package's histogram, the 16 swept lanes'
+   reports and the reproducer bytes equal to the CPU run's; then, with CUDA initialised in this process, the
+   dist engine's forked workers: ``python -m repro_torch.dist``'s smoke
+   (dist:2 equal to async) and the campaign on ``engine="dist"`` (2
+   workers), its reproducer bytes equal to ``engine="async"``;
+11. flash_attention — kernel vs plain version at the serving path's
    prefill shape (B=4, S=1024, H=32, Hkv=8, hd=128, causal), at S=4096
    and at the edge shapes of tests/test_kernels.py, bfloat16 and
    float32, timed beside ``scaled_dot_product_attention`` (with a
@@ -43,12 +57,12 @@ One JSON line per phase:
    untimed at hd 8, 24 and 40, one query row, Sq < Sk under the causal
    mask and a window narrower than a key tile, and through
    ``ops.flash_attention`` on non-contiguous (B, S, H, hd) views;
-10. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
+12. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
    hd=128, S=1056, ragged lengths), at S=8192, at recurrentgemma's
    ring buffer (S=2,048, MQA, hd 256) and the edge shapes: lengths on
    and either side of the split kernel's chunk boundaries, a length-0
    row among full rows, lengths above S, qpk = 1;
-11. rglru_scan — the chained scan kernel vs plain version at
+13. rglru_scan — the chained scan kernel vs plain version at
    recurrentgemma's prefill shape (B=4, S=3,072, W=4,096, timed, and
    with h0), a long-chain shape (B=1, S=16,384, W=1,024; the kernel
    timed, the plain loop over S timed once), odd W
@@ -56,31 +70,31 @@ One JSON line per phase:
    tests/test_kernels.py's shapes (padded S, h0), float32; each case
    with the kernel's T_c, W_t and grid, and two calls at the prefill
    shape bit-equal;
-12. mlstm_chunkwise — kernel vs plain version at xlstm's prefill shape
+14. mlstm_chunkwise — kernel vs plain version at xlstm's prefill shape
    (BH=16, S=1,024, hd=1,024), bfloat16 (the tensor-core kernel) and
    float32 (the first design), and edge shapes (S not a multiple of the
    chunk, an initial carry, small hd, in bfloat16 a head dim above the
    tensor-core kernel's limit), with the final (C, n) and the source
    that ran;
-13. serve — the serving path: ``BatchServer`` on full-width, full-depth
+15. serve — the serving path: ``BatchServer`` on full-width, full-depth
    qwen3_4b in bfloat16 (random weights from a seed), 4 prompts of 1,024
    tokens, 32 new tokens; one warm-up ``generate`` and 3 timed ones,
    each with the kernel counters set to 0 just before and read just
    after; then one profiled ``generate`` and profiled decode steps;
-14. serve_parity — the same entry point at full width, 2 layers,
+16. serve_parity — the same entry point at full width, 2 layers,
    float32: the card's logits and greedy tokens against the CPU run of
    the same parameters (the plain versions);
-15. serve_rglru, serve_xlstm — the same serving phase on full-width,
+17. serve_rglru, serve_xlstm — the same serving phase on full-width,
    full-depth recurrentgemma_9b (4 prompts of 3,072 tokens, past the
    2,048 window) and xlstm_1_3b (4 prompts of 1,024 tokens), 32 new
    tokens each, every kernel's launches per ``generate`` checked;
-16. serve_parity_rglru, serve_parity_xlstm — card against CPU at full
+18. serve_parity_rglru, serve_parity_xlstm — card against CPU at full
    width, float32, cut depth: recurrentgemma (rec, rec, attn) with
    prompts of 2,080 tokens, which wrap the window; xlstm one mLSTM and
    one sLSTM block with prompts of 200 tokens, which the kernel pads;
-17. live_serve — ``record_live_serve`` on the card (smoke config), its
+19. live_serve — ``record_live_serve`` on the card (smoke config), its
    trace replayed bit-identically under the barrier and async engines;
-18. kernels — one object per kernel: launches on its paths (the main
+20. kernels — one object per kernel: launches on its paths (the main
    path and the sweep for ``minskew`` and ``hub_route``), max error
    against the plain version, times, the card's bound, the library
    call's time and, for the engine's two kernels, the launch floor.
@@ -209,27 +223,35 @@ MINSKEW_KERNELS = ("minskew_cluster_kernel",)
 HUB_KERNELS = ("hub_lookback_kernel",)
 
 
-def one_device_op(torch, fn, names, calls: int = 40) -> float:
+def one_device_op(torch, fn, names, calls: int = 40,
+                  windows: int = 5) -> float:
     """Holds ``fn`` to one device operation a call: over ``calls`` calls
     every device record the profiler kept is one of ``names`` (no fill,
     no memset, no copy) and there are at most ``calls`` of them; returns
     the records per call.  It keeps only some records of a kernel
     launched through ctypes, so the records' names and their count are
-    checked, never a single record."""
+    checked, never a single record; now and then it keeps none in a
+    window, which shows nothing either way, so such a window is taken
+    again, up to ``windows`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    seen = {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
-    if (not seen or sum(seen.values()) > calls
-            or any(not any(n in k for n in names) for k in seen)):
-        raise AssertionError(f"not one device operation a call: {seen}")
-    return sum(seen.values()) / calls
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+        if not seen:
+            continue
+        if (sum(seen.values()) > calls
+                or any(not any(n in k for n in names) for k in seen)):
+            raise AssertionError(f"not one device operation a call: {seen}")
+        return sum(seen.values()) / calls
+    raise AssertionError(f"not one device operation a call: no device "
+                         f"record in {windows} windows of {calls} calls")
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -397,7 +419,10 @@ def phase_minskew(torch, np, dev, floor_ms: float):
     from repro_torch.kernels.ref import minskew_plain
     rng = np.random.default_rng(0)
     shapes = []
-    for v, n, s in ((1, 16_384, 1), (1, 16_384, 256), (8, 4_096, 64)):
+    # the main path's, a wide scope set, the sweep's cluster plan, the
+    # main-path campaign's sweep
+    for v, n, s in ((1, 16_384, 1), (1, 16_384, 256), (8, 4_096, 64),
+                    (32, 16_384, 1)):
         err, t = check_minskew(torch, np, dev,
                                *minskew_inputs(np, rng, v, n, s))
         again = minskew(*t)
@@ -495,16 +520,22 @@ def phase_hub_route(torch, np, dev, floor_ms: float):
     return shapes[0]
 
 
-def main_path_sim():
+#: the main path's size: pods (one host each) x chips per pod
+MAIN_PODS, MAIN_CHIPS = 16, 1024
+
+
+def main_path_sim(scenario=None):
     from repro_torch.core.cluster import ClusterSpec, StepCost
     from repro_torch.sim import ChipRingTraining, Simulation, Topology
     wl = ChipRingTraining(
-        ClusterSpec(n_pods=16, chips_per_pod=1024),
+        ClusterSpec(n_pods=MAIN_PODS, chips_per_pod=MAIN_CHIPS),
         StepCost(compute_ns=5_000_000, ici_bytes=50_000_000,
                  dcn_bytes=6_000_000), n_steps=4)
     return Simulation(
-        Topology.full_mesh(16, link=Topology().default_host_link), wl,
-        placement={f"chip{i}": i // 1024 for i in range(16_384)})
+        Topology.full_mesh(MAIN_PODS, link=Topology().default_host_link),
+        wl, scenario,
+        placement={f"chip{i}": i // MAIN_CHIPS
+                   for i in range(MAIN_PODS * MAIN_CHIPS)})
 
 
 def strip_wall(report) -> dict:
@@ -629,6 +660,157 @@ def phase_sweep(torch, dev, n_variants: int = 64, n_async: int = 4):
          launches=launches, lanes_equal_cpu=n_variants,
          lanes_equal_solo=n_variants, lanes_equal_async=n_async)
     return axis, res.tick_ns, launches
+
+
+def campaign_rows(report) -> dict:
+    """A ``CampaignReport`` without its clock fields."""
+    d = report.to_dict()
+    d.pop("wall_s")
+    d.pop("points_per_s")
+    return d
+
+
+def recording(make):
+    """A campaign's ``make_sim`` that keeps the lane reports of every
+    sweep the campaign runs on what it made, in ``.lanes``."""
+    lanes = []
+
+    def make_kept(scenario=None):
+        sim = make(scenario)
+        sweep = sim.sweep
+
+        def sweep_kept(axis, **kw):
+            res = sweep(axis, **kw)
+            lanes.extend(res.reports)
+            return res
+        sim.sweep = sweep_kept
+        return sim
+    make_kept.lanes = lanes
+    return make_kept
+
+
+def lanes_equal(what: str, card: list, cpu: list, n: int) -> None:
+    """Every swept lane's whole report (vtimes of every task included)
+    on the card equal to the CPU's, where the kernels' plain versions
+    ran on the same inputs."""
+    if len(card) != n or len(cpu) != n:
+        raise AssertionError(f"{what}: {len(card)} card and {len(cpu)} "
+                             f"CPU lanes, expected {n}")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if strip_wall(a) != strip_wall(b):
+            raise AssertionError(f"{what} lane {i}: card != CPU")
+
+
+def timed_campaign(camp, minimize: bool = True):
+    """(report, set-up seconds, engine-kernel launches): the kernel
+    counters are set to 0 just before ``run`` and read just after.  The
+    set-up is the part of ``run`` outside the report's ``wall_s``: the
+    baseline on the reference engine (which launches no kernel) and the
+    grid's points."""
+    from repro_torch.kernels.hub_route import hub_route
+    from repro_torch.kernels.minskew import minskew
+    minskew.launches = hub_route.launches = 0
+    t0 = time.perf_counter()
+    report = camp.run(minimize=minimize)
+    setup_s = time.perf_counter() - t0 - report.wall_s
+    return report, setup_s, {"minskew": minskew.launches,
+                             "hub_route": hub_route.launches}
+
+
+def phase_campaign_main(torch, dev):
+    """A fault campaign over the main path: one straggler chip (3x) per
+    pod, or four correlated pods, 32 points, ``engine="auto"``; every
+    point must take the sweep fast path on the card through both engine
+    kernels, every lane's report (vtimes included) must equal the CPU
+    sweep's, and the campaign's report the CPU campaign's."""
+    from repro_torch.sim import Campaign, FaultGrid
+
+    def camp(device):
+        grid = FaultGrid(
+            types=("straggler",),
+            targets=tuple(f"chip{p * MAIN_CHIPS}" for p in range(MAIN_PODS)),
+            vtimes=(0,), counts=(1, 4), knobs={"slowdown": 3.0})
+        make = recording(main_path_sim)
+        return make, Campaign(make, grid, seed=0, engine="auto",
+                              base_name="main_path", device=device)
+    make, card = camp(dev)
+    rep, baseline_s, launches = timed_campaign(card, minimize=False)
+    n = rep.grid["n_points"]
+    if rep.fast_path != "sweep":
+        raise AssertionError(f"campaign_main: fast path {rep.fast_path}")
+    if launches["minskew"] < 1 or launches["hub_route"] < 1:
+        raise AssertionError(f"campaign_main missed a kernel: {launches}")
+    make_cpu, on_cpu = camp("cpu")
+    cpu, cpu_baseline_s, _ = timed_campaign(on_cpu, minimize=False)
+    lanes_equal("campaign_main", make.lanes, make_cpu.lanes, n)
+    if campaign_rows(rep) != campaign_rows(cpu):
+        raise AssertionError("campaign_main: card report != CPU report")
+    emit("campaign_main", points=n, vtasks=MAIN_PODS * MAIN_CHIPS,
+         fast_path=rep.fast_path, histogram=rep.histogram,
+         baseline_s=baseline_s, sweep_wall_s=rep.wall_s,
+         points_per_s=rep.points_per_s, cpu_baseline_s=cpu_baseline_s,
+         cpu_wall_s=cpu.wall_s, launches=launches, lanes_equal_cpu=n,
+         equal_to_cpu=True)
+    return launches
+
+
+#: the rack_ring@v1 histogram the JAX package gives
+RACK_RING_HISTOGRAM = {"ok": 16, "deadlock": 8, "invariant-violation": 0,
+                       "crash": 0, "divergence": 0}
+#: its points that the sweep takes (the rest are clock skews)
+RACK_RING_SWEPT = 16
+
+
+def phase_campaign(torch, dev):
+    """The registry's sweepable campaign base, ``rack_ring@v1`` with its
+    grid: the sweepable points on the card, the clock-skew points on the
+    reference engine ("mixed"), the pinned histogram, every swept lane's
+    report equal to the CPU sweep's, reproducers byte-equal to the CPU
+    run's.  Then, in this process with CUDA
+    initialised, the dist engine's forked workers: ``python -m
+    repro_torch.dist``'s smoke and the campaign on ``engine="dist"``,
+    its reproducers byte-equal to ``engine="async"``."""
+    from repro_torch.dist.__main__ import smoke
+    from repro_torch.sim import Campaign, registry
+    from repro_torch.sim.campaign import spec_to_bytes
+    ent = registry.entry("rack_ring@v1")
+
+    def camp(make=ent.make, **kw):
+        return Campaign(make, ent.grid(), seed=0, base_name=ent.ref, **kw)
+    make, make_cpu = recording(ent.make), recording(ent.make)
+    rep, baseline_s, launches = timed_campaign(camp(make, device=dev))
+    if rep.fast_path != "mixed" or rep.histogram != RACK_RING_HISTOGRAM:
+        raise AssertionError(f"campaign: {rep.fast_path} {rep.histogram}")
+    if launches["minskew"] < 1:
+        raise AssertionError(f"campaign missed minskew: {launches}")
+    specs = [spec_to_bytes(s) for s in rep.reproducers]
+    cpu = camp(make_cpu, device="cpu").run()
+    lanes_equal("campaign", make.lanes, make_cpu.lanes, RACK_RING_SWEPT)
+    if campaign_rows(rep) != campaign_rows(cpu) or \
+            specs != [spec_to_bytes(s) for s in cpu.reproducers]:
+        raise AssertionError("campaign: card report != CPU report")
+    if not torch.cuda.is_initialized():
+        raise AssertionError("campaign: CUDA not initialised before dist")
+    t0 = time.perf_counter()
+    smoke(2)
+    smoke_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist = camp(engine="dist", n_workers=2, worker_timeout=60.0).run()
+    dist_s = time.perf_counter() - t0
+    asy = camp(engine="async").run()
+    if [spec_to_bytes(s) for s in dist.reproducers] != \
+            [spec_to_bytes(s) for s in asy.reproducers] or \
+            dist.histogram != asy.histogram:
+        raise AssertionError("campaign: dist:2 reproducers != async")
+    emit("campaign", base=ent.ref, points=rep.grid["n_points"],
+         fast_path=rep.fast_path, histogram=rep.histogram,
+         reproducers=len(specs), baseline_s=baseline_s,
+         wall_s=rep.wall_s, points_per_s=rep.points_per_s,
+         launches=launches, lanes_equal_cpu=RACK_RING_SWEPT,
+         equal_to_cpu=True, dist_smoke_s=smoke_s,
+         dist_campaign_s=dist_s, dist_histogram=dist.histogram,
+         dist_specs_equal_async=True)
+    return launches
 
 
 def loop_s(torch, run) -> tuple:
@@ -1482,6 +1664,8 @@ def main() -> int:
     phase_main_path_breakdown(torch, dev)
     axis, tick, sweep_launches = phase_sweep(torch, dev)
     phase_check_interval(torch, np, dev, axis, tick)
+    campaign_main_launches = phase_campaign_main(torch, dev)
+    campaign_launches = phase_campaign(torch, dev)
     fa = phase_flash_attention(torch, np, dev)
     da = phase_decode_attention(torch, np, dev)
     rg = phase_rglru_scan(torch, np, dev)
@@ -1497,7 +1681,9 @@ def main() -> int:
     phase_serve_parity(torch, np, dev, SERVE_XLSTM[0], PARITY_XLSTM,
                        "serve_parity_xlstm")
     phase_live_serve(torch, dev)
-    paths = {k: {"main_path": launches[k], "sweep": sweep_launches[k]}
+    paths = {k: {"main_path": launches[k], "sweep": sweep_launches[k],
+                 "campaign_main": campaign_main_launches[k],
+                 "campaign": campaign_launches[k]}
              for k in ("minskew", "hub_route")}
     for kname in ("flash_attention", "decode_attention", "rglru_scan",
                   "mlstm_chunkwise"):

@@ -33,6 +33,15 @@ SOURCES = ("minskew", "hub_route", "flash_attention", "flash_attention_sm90",
            "decode_attention", "rglru_scan", "mlstm_kernel",
            "mlstm_kernel_sm90", "launch_floor")
 
+
+class KernelArgumentError(ValueError):
+    """A kernel wrapper refused its tensors (device, shape, layout).  A
+    ``ValueError``, as the wrappers raised before it, so callers that
+    catch that behave as before; its own type lets a caller that falls
+    back on a ``ValueError`` of the simulator's surface tell the two
+    apart."""
+
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import KernelArgumentError as _ArgError
 from repro_torch.kernels.ref import hub_route_plain
 
 #: messages per tile (a block of 256 threads, 4 messages a thread)
@@ -88,15 +89,15 @@ def _scratch(dev: torch.device, stream: int, tiles: int):
 
 def _check(name, t, n, device):
     if t.device != device:
-        raise ValueError(f"hub_route: {name} on {t.device}, "
-                         f"expected {device}")
+        raise _ArgError(f"hub_route: {name} on {t.device}, "
+                        f"expected {device}")
     if t.dtype != torch.int32:
         raise TypeError(f"hub_route: {name} is {t.dtype}, expected int32")
     if t.dim() != 1 or (n is not None and t.shape[0] != n):
-        raise ValueError(f"hub_route: {name} has shape {tuple(t.shape)}, "
-                         f"expected ({n},)")
+        raise _ArgError(f"hub_route: {name} has shape {tuple(t.shape)}, "
+                        f"expected ({n},)")
     if not t.is_contiguous():
-        raise ValueError(f"hub_route: {name} is not contiguous")
+        raise _ArgError(f"hub_route: {name} is not contiguous")
 
 
 def serialization(size_bytes: torch.Tensor, link_id: torch.Tensor,
@@ -125,7 +126,7 @@ def hub_route(send_vtime: torch.Tensor, size_bytes: torch.Tensor,
 def _launch(send, ser, link, lat):
     dev = send.device
     if dev.type != "cuda":
-        raise ValueError(f"hub_route: no kernel for device {dev}")
+        raise _ArgError(f"hub_route: no kernel for device {dev}")
     m = send.shape[0] if send.dim() == 1 else -1
     _check("send_vtime", send, None, dev)
     _check("ser", ser, m, dev)

@@ -10,7 +10,8 @@ within the skew bound of every scope it belongs to.  The kernel
 
 Bound on the H100: bytes, far below the cost of a launch at the
 engine's shapes (115 KB at the main path's N = 16,384, S = 1).  So a
-call is one device operation: one launch of ``minskew_cluster_kernel``,
+call is one device operation (up to ``MAX_V`` variants, then one for
+every ``MAX_V``): one launch of ``minskew_cluster_kernel``,
 one thread block cluster of R blocks per variant (:func:`plan` picks R
 from N*S).  Each block takes a slab of rows, folds its partial scope
 minima in shared memory, reads every rank's partials through the
@@ -32,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import KernelArgumentError as _ArgError
 from repro_torch.kernels.ref import INF, minskew_plain
 
 #: threads per block
@@ -46,6 +48,8 @@ SLAB_MAX = 192 * 1024
 CTA_BYTES = 8 * 1024
 #: streaming multiprocessors of an H100 SXM
 SMS = 132
+#: variants a launch (the grid's y extent); more take one launch each
+MAX_V = 65535
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -111,14 +115,14 @@ def plan(v: int, n: int, s: int, aligned: bool = True,
 
 def _check(name, t, dtype, shape, device):
     if t.device != device:
-        raise ValueError(f"minskew: {name} on {t.device}, expected {device}")
+        raise _ArgError(f"minskew: {name} on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"minskew: {name} is {t.dtype}, expected {dtype}")
     if t.shape != shape:
-        raise ValueError(f"minskew: {name} has shape {tuple(t.shape)}, "
-                         f"expected {shape}")
+        raise _ArgError(f"minskew: {name} has shape {tuple(t.shape)}, "
+                        f"expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"minskew: {name} is not contiguous")
+        raise _ArgError(f"minskew: {name} is not contiguous")
 
 
 def minskew(vtime: torch.Tensor, runnable: torch.Tensor,
@@ -142,33 +146,45 @@ def minskew(vtime: torch.Tensor, runnable: torch.Tensor,
 def _launch(vtime, runnable, membership, skew, cluster=None):
     dev = vtime.device
     if dev.type != "cuda":
-        raise ValueError(f"minskew: no kernel for device {dev}")
+        raise _ArgError(f"minskew: no kernel for device {dev}")
     v, n, s = membership.shape
     _check("vtime", vtime, torch.int32, (v, n), dev)
     _check("runnable", runnable, torch.int8, (v, n), dev)
     _check("membership", membership, torch.int8, (v, n, s), dev)
     _check("skew", skew, torch.int32, (v, s), dev)
-    if v > 65535:
-        raise ValueError(f"minskew: V={v} exceeds the launch grid")
     if v == 0 or n == 0 or s == 0:
         minima = torch.full((v, s), INF, dtype=torch.int32, device=dev)
         return minima, (runnable != 0).to(torch.int8)
     minima = torch.empty((v, s), dtype=torch.int32, device=dev)
     elig = torch.empty((v, n), dtype=torch.int8, device=dev)
-    mem_ptr = membership.data_ptr()
-    p = plan(v, n, s, mem_ptr % 16 == 0, cluster)
-    args = (vtime.data_ptr(), runnable.data_ptr(), mem_ptr,
-            skew.data_ptr(), minima.data_ptr(), elig.data_ptr(), v, n, s,
-            p.cluster, p.kept_rows, p.vec)
     if dev.index is None or dev.index == torch.cuda.current_device():
-        err = _lib()(*args, _build.stream_ptr(torch, dev))
+        _launch_rows(vtime, runnable, membership, skew, minima, elig,
+                     cluster, dev)
     else:
         with torch.cuda.device(dev):
-            err = _lib()(*args, _build.stream_ptr(torch, dev))
-    if err != 0:
-        raise RuntimeError(f"minskew kernel launch failed: CUDA error {err}")
-    minskew.launches += 1
+            _launch_rows(vtime, runnable, membership, skew, minima, elig,
+                         cluster, dev)
     return minima, elig
+
+
+def _launch_rows(vtime, runnable, membership, skew, minima, elig, cluster,
+                 dev):
+    """One launch for every ``MAX_V`` variants (the grid's y limit): a
+    single launch a call up to there."""
+    v, n, s = membership.shape
+    stream = _build.stream_ptr(torch, dev)
+    for v0 in range(0, v, MAX_V):
+        rows = min(MAX_V, v - v0)
+        mem_ptr = membership[v0].data_ptr()
+        p = plan(rows, n, s, mem_ptr % 16 == 0, cluster)
+        err = _lib()(vtime[v0].data_ptr(), runnable[v0].data_ptr(), mem_ptr,
+                     skew[v0].data_ptr(), minima[v0].data_ptr(),
+                     elig[v0].data_ptr(), rows, n, s, p.cluster,
+                     p.kept_rows, p.vec, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"minskew kernel launch failed: CUDA error {err}")
+        minskew.launches += 1
 
 
 minskew.launches = 0

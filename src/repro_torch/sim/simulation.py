@@ -658,9 +658,11 @@ class Simulation:
 
         ``engine`` overrides the construction-time ``mode``:
         ``"single"``/``"async"``/``"barrier"`` pick an in-process
-        engine; ``engine="dist"`` is not ported yet and raises
-        ``NotImplementedError`` (``n_workers``/``worker_timeout`` keep
-        its signature).  ``engine="vectorized"`` compiles the
+        engine; ``engine="dist"`` shards the topology's hosts across
+        ``n_workers`` real OS worker processes (`repro_torch.dist`),
+        merging per-worker reports — results are bit-identical to the
+        in-process engines; its workers never touch the card.
+        ``engine="vectorized"`` compiles the
         scenario to int32 tensors and runs the round loop on ``device``
         (`repro_torch.sim.vectorized`; None means ``"cuda"``, and there
         is no quiet CPU fallback): bit-identical on the exact tier
@@ -673,7 +675,8 @@ class Simulation:
         quantization tick override, kernel path ("auto": the CUDA
         kernels on a CUDA device, the plain versions on the CPU; "on";
         "off"), and a cross-check of the batched hub fan-out against
-        the round loop."""
+        the round loop.  ``worker_timeout`` (dist only) fails a hung
+        worker fast instead of wedging the caller."""
         if on_deadlock not in ("report", "raise"):
             raise ValueError(f"on_deadlock must be 'report' or 'raise', "
                              f"got {on_deadlock!r}")
@@ -687,9 +690,17 @@ class Simulation:
                                     or "vectorized simulation wedged")
             return report
         if engine == "dist":
-            raise NotImplementedError(
-                "engine='dist' is not ported yet: repro_torch.dist is "
-                "ROADMAP.md queue A, item 3")
+            from repro_torch.dist import run_dist
+            from repro_torch.sim.live import check_dist_live
+            check_dist_live(self.workloads)
+            report = run_dist(
+                self, n_workers=n_workers, timeout=worker_timeout,
+                **({} if max_rounds is None
+                   else {"max_rounds": max_rounds}))
+            if report.status == "deadlock" and on_deadlock == "raise":
+                raise DeadlockError(report.detail
+                                    or "distributed simulation wedged")
+            return report
         if engine is not None:
             if engine not in ("single", "async", "barrier"):
                 raise ValueError(f"unknown engine {engine!r}")

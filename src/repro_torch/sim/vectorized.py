@@ -89,6 +89,14 @@ class UnsupportedByEngine(ValueError):
     an unsupported run is an explicit error, not a silent divergence."""
 
 
+class RoundsExhausted(RuntimeError):
+    """The round loop hit ``max_rounds`` before its fixpoint: the
+    scenario needs more rounds than the cap, a refusal of the surface
+    like :class:`UnsupportedByEngine` (a campaign falls back to the
+    reference engines on it).  A ``RuntimeError``, as before, for
+    callers that catch that."""
+
+
 def _ser_ns(size_bytes: int, link) -> int:
     # exactly Hub._serialize's expression
     return int(size_bytes * 8 / link.bandwidth_bps * SEC)
@@ -778,7 +786,7 @@ def run_vectorized_sim(sim, *, tick_ns: Optional[int] = None,
     _sync(dev)
     wall = time.perf_counter() - t0
     if bool(st.progressed) and not bool(st.done.all()):
-        raise RuntimeError(
+        raise RoundsExhausted(
             f"vectorized engine: max_rounds={cap} exhausted before "
             f"the fixpoint")
     return _decompile(sim, comp, st, wall, device=dev, kernel=kernel,
@@ -847,7 +855,7 @@ def sweep_vectorized(sim, axis: List[Scenario], *,
         st_v = ej.VecSimState(**{f: getattr(out, f)[v]
                                  for f in ej.STATE_FIELDS})
         if bool(st_v.progressed) and not bool(st_v.done.all()):
-            raise RuntimeError(
+            raise RoundsExhausted(
                 f"vectorized sweep variant {v}: max_rounds={cap} "
                 f"exhausted before the fixpoint")
         reports.append(_decompile(variants[v], comp, st_v,

@@ -282,10 +282,12 @@ def _minskew_equal(t, cluster=None):
     return got
 
 
-#: chip_smoke's shapes; the sweep's variant axis; R > N; S a multiple
-#: of 16 below one group a lane; S above one chunk of scopes
+#: chip_smoke's shapes; the main-path campaign's sweep; the sweep's
+#: variant axis; R > N; S a multiple of 16 below one group a lane; S
+#: above one chunk of scopes
 @pytest.mark.parametrize("v,n,s", [(1, 16_384, 1), (1, 16_384, 256),
-                                   (8, 4_096, 64), (64, 16, 3), (1, 5, 3),
+                                   (8, 4_096, 64), (32, 16_384, 1),
+                                   (64, 16, 3), (1, 5, 3),
                                    (3, 33, 16), (2, 700, 2_100),
                                    (1, 100_000, 48)])
 def test_minskew_kernel_vs_plain(dev, v, n, s):
@@ -332,6 +334,23 @@ def test_minskew_edge_cases(dev):
          [10, 20])
     for v, n, s in ((0, 4, 3), (2, 0, 3), (2, 4, 0)):
         _minskew_equal(_minskew_inputs(dev, v, n, s))
+
+
+def test_minskew_variants_past_one_launch(dev):
+    """More variants than a launch's grid takes: one launch for every
+    ``MAX_V``, with 16-byte membership loads (S = 16) and without
+    (S = 1), bit-equal to the plain version."""
+    from repro_torch.kernels import minskew as km
+    from repro_torch.kernels.ref import minskew_plain
+    for v, n, s in ((km.MAX_V + 3, 4, 16), (km.MAX_V + 1, 3, 1)):
+        t = _minskew_inputs(dev, v, n, s)
+        before = km.minskew.launches
+        got = km.minskew(*t)
+        assert km.minskew.launches == before + 2
+        want = minskew_plain(*t)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_minskew_sizes_in_sequence_and_twice(dev):

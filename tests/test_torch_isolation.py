@@ -38,7 +38,9 @@ def test_port_files_exist():
                 "kernels/flash_attention.py", "kernels/decode_attention.py",
                 "kernels/rglru_scan.py", "kernels/mlstm_kernel.py",
                 "models/transformer.py", "models/rglru.py",
-                "models/xlstm.py", "serve/loop.py", "sim/live.py"):
+                "models/xlstm.py", "serve/loop.py", "sim/live.py",
+                "sim/control.py", "sim/campaign.py", "sim/registry.py",
+                "dist/coordinator.py", "dist/worker.py", "dist/frames.py"):
         assert f"repro_torch/{mod}" in names, mod
     for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",
                 "decode_attention.cu", "rglru_scan.cu", "mlstm_kernel.cu"):
@@ -71,6 +73,17 @@ def test_port_runs_with_jax_and_repro_blocked():
         rep = Simulation(Topology.racks(2, 2), wl).run(
             engine="vectorized", device="cpu", verify=True)
         assert rep.status == "ok" and rep.tier == "exact", rep.status
+        wl = RackRing(n_racks=2, hosts_per_rack=2, n_iters=4,
+                      cross_every=2)
+        dist = Simulation(Topology.racks(2, 2), wl).run(
+            engine="dist", n_workers=2, worker_timeout=60.0)
+        assert dist.vtime_ns == rep.vtime_ns, dist.vtime_ns
+        from repro_torch.sim import Campaign, registry
+        ent = registry.entry("rack_ring@v1")
+        camp = Campaign(ent.make, ent.grid(), seed=0,
+                        device="cpu").run(minimize=False)
+        assert camp.fast_path == "mixed", camp.fast_path
+        assert registry.check(["rack_ring@v1", "serve_flip_min@v1"]) == []
         import torch
         from repro_torch import configs
         from repro_torch.models import registry

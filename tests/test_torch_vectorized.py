@@ -213,11 +213,18 @@ def test_validation_matches_jax(inj, match):
 
 
 def test_on_deadlock_raise_and_dist_not_ported():
+    """``on_deadlock="raise"`` on the vectorized engine; and the dist
+    engine, ported since this test's name was given, runs the same
+    ``rack`` scenario equal to the async engine."""
     with pytest.raises(DeadlockError):
         rack(T, (T.FailHost(1, at_vtime=160_000),)).run(
             engine="vectorized", on_deadlock="raise", **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rack(T).run(engine="dist")
+    dist = rack(T).run(engine="dist", n_workers=2, worker_timeout=60.0)
+    ref = rack(T).run(engine="async")
+    assert dist.mode == "dist" and dist.n_workers == 2
+    for f in CORE_FIELDS:
+        assert getattr(dist, f) == getattr(ref, f), f
+    assert dist.links == ref.links
 
 
 # ---------------------------------------------------------------- sweeps
