@@ -10,9 +10,9 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — the nine CUDA sources (the six kernels and the empty
-   ``launch_floor`` kernel) compiled from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` each, in parallel);
+2. build — the ten CUDA sources (the six kernels, the attention backward
+   and the empty ``launch_floor`` kernel) compiled from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
 3. launch_floor — an empty kernel launched through the same ctypes
    route, timed: what one launch costs, beside every bytes bound;
 4. minskew — kernel vs plain version on the card, bit-equal, timed at
@@ -57,6 +57,14 @@ One JSON line per phase:
    untimed at hd 8, 24 and 40, one query row, Sq < Sk under the causal
    mask and a window narrower than a key tile, and through
    ``ops.flash_attention`` on non-contiguous (B, S, H, hd) views;
+11b. flash_attention_bwd — the attention backward kernel
+   (``csrc/flash_attention_bwd.cu``) vs its plain version
+   (``attention_flat_bwd_plain``) at the trainer's shape (B=4, S=1,024,
+   32/8 heads, hd 128, causal; bfloat16 and float32, timed beside SDPA's
+   backward, two calls bit-equal), recurrentgemma's window shape (MQA,
+   hd 256, window 2,048) and the forward's edge shapes (hd 8/24/40,
+   Sq < Sk, a window narrower than a key tile, Sk = 0), and through
+   ``ops.flash_attention`` under autograd on non-contiguous views;
 12. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
    hd=128, S=1056, ragged lengths), at S=8192, at recurrentgemma's
    ring buffer (S=2,048, MQA, hd 256) and the edge shapes: lengths on
@@ -94,10 +102,27 @@ One JSON line per phase:
    one sLSTM block with prompts of 200 tokens, which the kernel pads;
 19. live_serve — ``record_live_serve`` on the card (smoke config), its
    trace replayed bit-identically under the barrier and async engines;
-20. kernels — one object per kernel: launches on its paths (the main
-   path and the sweep for ``minskew`` and ``hub_route``), max error
-   against the plain version, times, the card's bound, the library
-   call's time and, for the engine's two kernels, the launch floor.
+20. train — the training path: ``Trainer`` on full-width, full-depth
+   qwen3_4b in bfloat16 (remat, AdamW, global batch 4 of 1,024 tokens),
+   one warm-up step and four timed ones, each with the kernel counters
+   set to 0 just before and read just after (attention forward twice a
+   layer, backward once, nothing else); one profiled step (idle share,
+   top device operations); every parameter's gradient present and
+   finite; peak memory;
+21. train_parity — three train steps at full width, 2 layers, float32,
+   on the card and on the CPU from the same parameters and batches:
+   losses, grad norms, parameters and AdamW moments within 1e-4;
+22. live_recovery, live_colocated — ``record_live_recovery`` and
+   ``record_live_colocated`` on the card (smoke config): the real trainer
+   loses a host, restores a committed checkpoint and re-meshes (ordered
+   timeline), or shares a cell with the real server (non-empty
+   latencies); each trace replayed bit-identically under the barrier and
+   async engines;
+23. kernels — one object per kernel: launches on its paths (the main
+   path and the sweep for ``minskew`` and ``hub_route``, the train paths
+   for the attention backward), max error against the plain version,
+   times, the card's bound, the library call's time and, for the
+   engine's two kernels, the launch floor.
 
 It uses one card: the first visible one (``CUDA_VISIBLE_DEVICES`` is
 narrowed to it before CUDA starts).
@@ -875,6 +900,7 @@ def phase_check_interval(torch, np, dev, axis, tick: int,
 #: kernel, fp32 flash the CUDA-core one (one launch either way); decode
 #: runs the split kernel and the combine kernel
 FLASH_KERNELS = ("flash_sm90_kernel", "flash_kernel")
+FLASH_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkdv")
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 #: (case, B, H, Hkv, Sq, Sk, hd, causal, window, timed): the serving
 #: path's prefill shape, a longer prompt, recurrentgemma's prefill,
@@ -961,6 +987,42 @@ MLSTM_CASES = [(16, 1024, 1024, False, True, BOTH),
                (2, 64, 8, True, False, BOTH),
                (16, 1024, 1024, True, False, ("bfloat16",)),
                (1, 128, 2880, True, False, ("bfloat16",))]
+
+
+#: (case, B, H, Hkv, Sq, Sk, hd, causal, window, timed) for the attention
+#: backward: the trainer's shape (full-width qwen3_4b, B=4, S=1,024, timed),
+#: recurrentgemma's window shape (MQA, hd 256, window 2,048), and the
+#: forward phase's edge shapes: hd 8/24/40, GQA with a padded tail, fewer
+#: queries than keys under the causal mask, a window narrower than a key
+#: tile, and Sk = 0
+FLASH_BWD_CASES = [("train", 4, 32, 8, 1024, 1024, 128, True, 0, True),
+                   ("rglru_window", 1, 16, 1, 3072, 3072, 256, True, 2048,
+                    False),
+                   ("gqa", 1, 4, 2, 128, 128, 64, True, 0, False),
+                   ("padded", 1, 8, 2, 96, 96, 32, True, 0, False),
+                   ("hd8", 2, 4, 2, 100, 100, 8, True, 0, False),
+                   ("hd24", 1, 4, 1, 130, 130, 24, True, 0, False),
+                   ("hd40", 1, 4, 2, 70, 70, 40, False, 0, False),
+                   ("sq_lt_sk_causal", 1, 4, 2, 50, 300, 128, True, 0,
+                    False),
+                   ("window5", 1, 4, 2, 200, 200, 256, True, 5, False),
+                   ("sk0", 2, 4, 2, 30, 0, 64, True, 0, False)]
+#: the training path: (arch, global batch, sequence length, warm-up steps,
+#: timed steps), full width and depth in bfloat16 with the config's remat
+TRAIN = ("qwen3_4b", 4, 1024, 1, 4)
+#: the train step's device operations by class, from their kernel names
+#: (the first class whose key a name contains; the rest are "other")
+TRAIN_OP_CLASSES = (("attention_bwd", ("flash_bwd",)),
+                    ("attention_fwd", ("flash_sm90", "flash_kernel")),
+                    ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+                    ("elementwise", ("elementwise", "copy", "fill")),
+                    ("reduction", ("reduce", "softmax", "logsumexp",
+                                   "index", "scatter", "gather")))
+#: the training parity phase: (layers, batch, sequence length, steps,
+#: peak lr) at qwen3_4b's full width in float32, card against CPU.  AdamW
+#: turns a gradient whose sign differs at rounding level into a step of
+#: +-lr, so lr stays below the parameters' tolerance
+TRAIN_PARITY = (2, 2, 128, 3, 1e-5)
 
 
 def sdpa(q, k, v, **kw):
@@ -1323,12 +1385,15 @@ def serve_prompts(np, vocab: int, b: int, s: int, seed: int):
 
 
 def _serving_wrappers() -> dict:
-    """The serving paths' kernel wrappers, by kernel name."""
+    """The model paths' kernel wrappers (serving and training), by kernel
+    name."""
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention_flat
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_flat)
     from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise
     from repro_torch.kernels.rglru_scan import rglru_scan
     return {"flash_attention": flash_attention_flat,
+            "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention,
             "rglru_scan": rglru_scan, "mlstm_chunkwise": mlstm_chunkwise}
 
@@ -1343,10 +1408,10 @@ def _zero_kernel_counts():
 
 
 def expected_launches(cfg, decode_steps: int) -> dict:
-    """Each serving kernel's launches in one ``generate``: attention
+    """Each model kernel's launches in one ``generate``: attention
     once per attention layer in prefill and per attention layer and
     decode step; the recurrences once per recurrent layer in prefill
-    (decode steps them in plain tensor ops)."""
+    (decode steps them in plain tensor ops); no attention backward."""
     n_attn = n_rec = n_mlstm = 0
     if cfg.family == "dense":
         n_attn = cfg.n_layers
@@ -1357,9 +1422,20 @@ def expected_launches(cfg, decode_steps: int) -> dict:
     elif cfg.family == "xlstm":
         from repro_torch.models.xlstm import is_slstm
         n_mlstm = sum(not is_slstm(cfg, i) for i in range(cfg.n_layers))
-    return {"flash_attention": n_attn,
+    return {"flash_attention": n_attn, "flash_attention_bwd": 0,
             "decode_attention": n_attn * decode_steps,
             "rglru_scan": n_rec, "mlstm_chunkwise": n_mlstm}
+
+
+def expected_train_launches(cfg, n_steps: int) -> dict:
+    """Each model kernel's launches in ``n_steps`` train steps of a dense
+    model: the attention forward once per layer, again per layer when
+    ``cfg.remat`` recomputes it in the backward, and the backward once
+    per layer; no decode or recurrent kernel."""
+    fwd = cfg.n_layers * (2 if cfg.remat else 1)
+    return {"flash_attention": n_steps * fwd,
+            "flash_attention_bwd": n_steps * cfg.n_layers,
+            "decode_attention": 0, "rglru_scan": 0, "mlstm_chunkwise": 0}
 
 
 def _device_kernels(prof, launched: dict):
@@ -1385,6 +1461,7 @@ def _device_kernels(prof, launched: dict):
 
 #: the device kernels each serving wrapper launches once per call
 DEVICE_KERNELS = {"flash_attention": FLASH_KERNELS,
+                  "flash_attention_bwd": FLASH_BWD_KERNELS,
                   "decode_attention": DECODE_KERNELS,
                   "rglru_scan": RGLRU_KERNELS,
                   "mlstm_chunkwise": MLSTM_KERNELS}
@@ -1644,6 +1721,395 @@ def phase_live_serve(torch, dev):
          replays_equal=["barrier", "async"])
 
 
+def _bshd_flat(t, hd: int):
+    b, s, h, _ = t.shape
+    return t.transpose(1, 2).reshape(b * h, s, hd)
+
+
+def _bwd_plain(q, k, v, o, do, causal, window):
+    """``attention_flat_bwd_plain`` on (B, S, H, hd) tensors, as (B, S,
+    H, hd) gradients."""
+    from repro_torch.kernels.ref import attention_flat_bwd_plain
+    b, hd = q.shape[0], q.shape[-1]
+    grads = attention_flat_bwd_plain(
+        *(_bshd_flat(t, hd) for t in (q, k, v, o, do)), causal=causal,
+        window=window)
+    return [g.reshape(b, t.shape[2], t.shape[1], hd).transpose(1, 2)
+            for g, t in zip(grads, (q, k, v))]
+
+
+def _bwd_err(got, want) -> tuple:
+    """(max abs error, largest |plain gradient|) over dq, dk, dv."""
+    err = scale = 0.0
+    for a, w in zip(got, want):
+        if w.numel():
+            err = max(err, _err(a, w))
+            scale = max(scale, float(w.float().abs().max()))
+    return err, scale
+
+
+def phase_flash_attention_bwd(torch, np, dev):
+    """The attention backward kernel (``csrc/flash_attention_bwd.cu``)
+    against its plain version (``attention_flat_bwd_plain``) on the card,
+    within ``ATTN_TOL`` x max(1, largest |plain gradient|); timed at the
+    trainer's shape beside SDPA's backward (its forward done before the
+    timed window); two calls bit-equal; and through ``ops.flash_attention``
+    under autograd on non-contiguous (B, S, H, hd) views."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_bshd,
+                                                     flash_attention_bwd)
+    g = torch.Generator(device=dev).manual_seed(11)
+    main, edge = [], []
+    for dt in (torch.bfloat16, torch.float32):
+        dname = _dname(torch, dt)
+        for name, b, h, hkv, sq, sk, hd, causal, window, timed in \
+                FLASH_BWD_CASES:
+            q, do = (torch.randn(b, sq, h, hd, generator=g,
+                                 device=dev).to(dt) for _ in range(2))
+            k, v = (torch.randn(b, sk, hkv, hd, generator=g,
+                                device=dev).to(dt) for _ in range(2))
+            with torch.no_grad():
+                o = flash_attention_bshd(q, k, v, causal=causal,
+                                         window=window)
+            got = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                      window=window)
+            again = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                        window=window)
+            want = _bwd_plain(q, k, v, o, do, causal, window)
+            torch.cuda.synchronize()
+            err, scale = _bwd_err(got, want)
+            _hold("flash_attention_bwd", err, dname, name, scale)
+            bit_equal = all(torch.equal(a, c) for a, c in zip(got, again))
+            if not bit_equal:
+                raise AssertionError(f"flash_attention_bwd: two calls "
+                                     f"differ at {name} ({dname})")
+            del got, again, want
+            if not timed:
+                edge.append({"case": name, "dtype": dname,
+                             "max_abs_err": err, "scale": scale})
+                continue
+            kern = lambda: flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                               window=window)
+            plain = lambda: _bwd_plain(q, k, v, o, do, causal, window)
+            q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(q4, k4, v4,
+                                                 is_causal=causal,
+                                                 enable_gqa=True)
+            do4 = do.transpose(1, 2)
+            lib = lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                              retain_graph=True)
+            elt = q.element_size()
+            # q, k, v, o, dO read once; dq, dk, dv written once
+            n_bytes = elt * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+            pairs = visible_pairs(sq, sk, causal, window)
+            flops = 10 * hd * b * h * pairs
+            bound, by = attn_bound_ms(n_bytes, flops, dname)
+            main.append({
+                "case": name, "dtype": dname, "B": b, "H": h, "Hkv": hkv,
+                "S": sq, "hd": hd, "max_abs_err": err, "scale": scale,
+                "bit_equal": bit_equal,
+                **_timings(torch, kern, plain, FLASH_BWD_KERNELS, 10),
+                **_library(torch, lib, 10),
+                "library": "SDPA backward (torch.autograd.grad of "
+                           "scaled_dot_product_attention's output)",
+                "bound_ms": bound, "bound_by": by, "flops": flops,
+                "bytes": n_bytes,
+                "fp32_cuda_core_bound_ms": flops / PEAK_FLOPS["float32"]
+                * 1e3})
+            del out, q4, k4, v4
+    strided = []
+    for dt in (torch.bfloat16, torch.float32):
+        b, s, h, hkv, hd = 2, 150, 8, 2, 64
+        x = torch.randn(b, s, h + 2 * hkv, hd, generator=g,
+                        device=dev).to(dt).requires_grad_()
+        q, k, v = x[:, :, :h], x[:, :, h:h + hkv], x[:, :, h + hkv:]
+        do = torch.randn(b, s, h, hd, generator=g, device=dev).to(dt)
+        o = ops.flash_attention(q, k, v, causal=True, window=40)
+        (gx,) = torch.autograd.grad(o, (x,), do)
+        want = _bwd_plain(q.detach(), k.detach(), v.detach(), o.detach(),
+                          do, True, 40)
+        torch.cuda.synchronize()
+        err, scale = _bwd_err([gx], [torch.cat(want, dim=2)])
+        _hold("flash_attention_bwd", err, _dname(torch, dt), "strided",
+              scale)
+        strided.append({"view": "fused", "dtype": _dname(torch, dt),
+                        "contiguous": q.is_contiguous(),
+                        "max_abs_err": err})
+    emit("flash_attention_bwd", tolerance=ATTN_TOL,
+         tolerance_relative_to="max(1, largest |plain gradient|)",
+         shapes=main, edge=edge, strided=strided)
+    return main[0]
+
+
+def phase_train(torch, np, dev, spec=TRAIN):
+    """The training path: ``Trainer`` on full-width, full-depth qwen3_4b
+    in bfloat16 (random weights from a seed, synthetic data), AdamW, no
+    checkpoint; one warm-up step and the timed ones, each with the kernel
+    counters set to 0 just before and read just after and checked
+    against ``expected_train_launches``; then one profiled step (the
+    card's idle share, the top device operations) and one gradient of the
+    trained parameters, every leaf present and finite."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.train.step import grads_of
+    arch, batch, seq_len, warm, timed = spec
+    cfg = configs.get(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt:
+        tcfg = TrainerConfig(n_steps=warm + timed + 1, seq_len=seq_len,
+                             global_batch=batch, n_microbatch=1,
+                             checkpoint_every=10 ** 9, checkpoint_dir=ckpt,
+                             log_every=10 ** 9, seed=0)
+        tr = Trainer(cfg, tcfg, log_fn=lambda _s: None, device=dev)
+        t0 = time.perf_counter()
+        params, opt = tr.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        want = expected_train_launches(cfg, 1)
+        steps = []
+        for step in range(warm + timed):
+            data = tr.data.batch(step)
+            torch.cuda.synchronize()
+            _zero_kernel_counts()
+            t0 = time.perf_counter()
+            params, opt, metrics = tr.step(params, opt, step, data)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _kernel_counts()
+            if counts != want:
+                raise AssertionError(f"train step {step}: launches {counts}, "
+                                     f"expected {want}")
+            gnorm = float(metrics["grad_norm"])
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"train step {step}: loss {loss}, "
+                                     f"grad_norm {gnorm}")
+            steps.append({"step": step, "wall_s": wall, "loss": loss,
+                          "grad_norm": gnorm, "lr": float(metrics["lr"]),
+                          "launches": counts})
+        peak = torch.cuda.max_memory_allocated()
+        # one profiled step: the card's idle share and the top operations
+        data = tr.data.batch(warm + timed)
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, metrics = tr.step(params, opt, warm + timed, data)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        launched = _launched()
+        by_kernel, seen = _device_kernels(prof, launched)
+        busy_s = sum(by_kernel.values()) / 1e6
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+        by_class = {}
+        for k, us in by_kernel.items():
+            c = next((c for c, keys in TRAIN_OP_CLASSES
+                      if any(x in k for x in keys)), "other")
+            by_class[c] = by_class.get(c, 0.0) + us / 1e3
+        # every parameter gets a finite gradient
+        opt = None
+        torch.cuda.empty_cache()
+        data = tr.data.batch(0)
+        grads, _ = grads_of(cfg, params, data["tokens"], data["labels"],
+                            None)
+        leaves = tree_leaves(grads)
+        bad = [i for i, gl in enumerate(leaves)
+               if gl is None or not bool(torch.isfinite(gl).all())]
+        n_leaves = len(leaves)
+        if bad or n_leaves != len(tree_leaves(params)):
+            raise AssertionError(f"train: {len(bad)} parameter leaves "
+                                 f"without a finite gradient")
+        del grads, leaves, params
+    torch.cuda.empty_cache()
+    timed_walls = [r["wall_s"] for r in steps[warm:]]
+    med = statistics.median(timed_walls)
+    emit("train", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=cfg.n_params(), dtype="bfloat16", remat=cfg.remat,
+         global_batch=batch, seq_len=seq_len, n_microbatch=1,
+         warmup_steps=warm, init_s=init_s, steps=steps,
+         step_s_median=med, tokens_per_s=batch * seq_len / med,
+         peak_memory_bytes=peak, expected_launches_per_step=want,
+         profiled_step_wall_s=prof_wall, profiled_step_device_busy_s=busy_s,
+         profiled_step_device_idle_share=1 - busy_s / prof_wall,
+         profiled_step_device_ops=_device_ops(prof),
+         profiled_step_kernel_launches=launched,
+         profiled_step_kernel_records_seen=seen,
+         profiled_step_device_ms_by_op={k[:80]: us / 1e3 for k, us in top},
+         profiled_step_device_ms_by_class=by_class,
+         finite_gradient_leaves=n_leaves)
+    return {k: v * timed for k, v in want.items()}
+
+
+def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY):
+    """Full width, cut depth, float32: the same train steps on the card
+    (kernels) and on the CPU (plain versions), from the same parameters
+    and batches.  Per step, loss and grad norm within 1e-4 relative;
+    after the last, every parameter and AdamW moment within 1e-4 x
+    max(1, the leaf's largest |value|)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.step import build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = 1e-4
+    n_layers, batch, seq_len, n_steps, peak_lr = spec
+    cfg = dataclasses.replace(configs.get(TRAIN[0]), n_layers=n_layers,
+                              dtype=torch.float32)
+    torch.cuda.empty_cache()
+    gpu = registry.init(cfg, torch.Generator(device=dev).manual_seed(3),
+                        device=dev)
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), gpu)
+    states = {"card": (gpu, adamw_init(gpu)), "cpu": (cpu, adamw_init(cpu))}
+    del gpu, cpu
+    step = build_train_step(cfg, lr_kwargs=dict(peak_lr=peak_lr, warmup=1,
+                                                total=10))
+    rows = []
+    _zero_kernel_counts()
+    seconds = {"card": 0.0, "cpu": 0.0}
+    for i in range(n_steps):
+        out = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            data = SyntheticLMData(vocab=cfg.vocab, seq_len=seq_len,
+                                   global_batch=batch, seed=5, device=d)
+            t0 = time.perf_counter()
+            p, o, m = step(*states[where], i, data.batch(i))
+            out[where] = {k: float(v) for k, v in m.items()}
+            seconds[where] += time.perf_counter() - t0
+            states[where] = (p, o)
+        rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+               for k in ("loss", "grad_norm")}
+        if not all(r <= tol for r in rel.values()):
+            raise AssertionError(f"train_parity step {i}: {out} ({rel})")
+        rows.append({"step": i, **{f"{k}_card": out["card"][k]
+                                   for k in ("loss", "grad_norm", "lr")},
+                     **{f"{k}_cpu": out["cpu"][k]
+                        for k in ("loss", "grad_norm")}, "rel_err": rel})
+    counts = _kernel_counts()
+    want = expected_train_launches(cfg, n_steps)
+    if counts != want:
+        raise AssertionError(f"train_parity: launches {counts}, expected "
+                             f"{want}")
+    (pc, oc), (ph, oh) = states["card"], states["cpu"]
+    worst = {}
+    for part, a_tree, c_tree in (("params", pc, ph), ("m", oc["m"], oh["m"]),
+                                 ("v", oc["v"], oh["v"])):
+        errs = []
+        for a, c in zip(tree_leaves(a_tree), tree_leaves(c_tree)):
+            scale = max(1.0, float(c.abs().max()))
+            errs.append(float((a.cpu() - c).abs().max()) / scale)
+        worst[part] = max(errs)
+        if not worst[part] <= tol:
+            raise AssertionError(f"train_parity: {part} differ by "
+                                 f"{worst[part]} (relative to max(1, "
+                                 f"scale))")
+    del states, pc, oc, ph, oh
+    torch.cuda.empty_cache()
+    emit("train_parity", arch=cfg.name, n_layers=n_layers, dtype="float32",
+         remat=cfg.remat, batch=batch, seq_len=seq_len, steps=rows,
+         peak_lr=peak_lr, tolerance=tol, worst_relative_to_scale=worst,
+         launches=counts, seconds=seconds)
+    return counts
+
+
+def _recorded_phase(torch, dev, record, sim_of, phase: str, check):
+    """Record a live trace on the card with ``record(path, device=dev)``,
+    with the kernel counters set to 0 just before; hold it with
+    ``check(report, ledger, labels)``; replay it bit-identically under
+    the barrier and async engines (``single`` takes one host, the
+    scenarios span several).  Returns (report, ledger, counts)."""
+    import tempfile
+
+    from repro_torch.sim import CostLedger
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / f"{phase}_trace.json"
+        _zero_kernel_counts()
+        rep, ledger = record(path, device=dev)
+        counts = _kernel_counts()
+        if rep.status != "ok":
+            raise AssertionError(f"{phase}: status {rep.status}")
+        labels = {t: [e["label"] for e in es]
+                  for t, es in json.loads(path.read_text())["tasks"].items()}
+        check(rep, ledger, labels)
+        want = replayed(rep)
+        for eng in ("barrier", "async"):
+            got = replayed(sim_of(CostLedger.replay(path)).run(engine=eng))
+            if any(got[f] != want[f] for f in CORE_FIELDS):
+                raise AssertionError(f"{phase}: replay on {eng} != the "
+                                     f"record run")
+    return rep, ledger, counts, labels
+
+
+def phase_live_recovery(torch, dev):
+    """``record_live_recovery`` on the card (the JAX recorder's smoke
+    config): the real trainer loses a host under simulated time, restores
+    its last committed checkpoint, re-meshes and resumes.  The timeline is
+    ordered (detect < restore < remesh <= resumed), the restore comes from
+    a checkpoint the run committed, and the trace replays bit-identically."""
+    from repro_torch.sim import (live_recovery_sim, record_live_recovery,
+                                 recovery_timeline)
+
+    def check(rep, ledger, labels):
+        tl = recovery_timeline(rep)
+        v = {e["event"]: e["vtime"] for e in tl}
+        if not v.get("detect", 0) < v.get("restore", 0) < v.get(
+                "remesh", 0) <= v.get("resumed", -1):
+            raise AssertionError(f"live_recovery: timeline {tl}")
+        trainer = labels["live.trainer"]
+        saved = [int(x.split(":")[1])
+                 for x in trainer[:trainer.index("restore:1")]
+                 if x.startswith("save:")]
+        restored = {e["event"]: e["step"] for e in tl}["restore"]
+        if restored not in saved:
+            raise AssertionError(f"live_recovery: restored step {restored} "
+                                 f"is no committed checkpoint ({trainer})")
+    rep, ledger, counts, labels = _recorded_phase(
+        torch, dev, record_live_recovery, live_recovery_sim,
+        "live_recovery", check)
+    if counts["flash_attention"] < 1 or counts["flash_attention_bwd"] < 1:
+        raise AssertionError(f"live_recovery: launches {counts}")
+    emit("live_recovery", status=rep.status, vtime_ns=rep.vtime_ns,
+         timeline=recovery_timeline(rep), labels=labels,
+         fail_probe=ledger.meta.get("fail_probe"), launches=counts,
+         replays_equal=["barrier", "async"])
+
+
+def phase_live_colocated(torch, dev):
+    """``record_live_colocated`` on the card: the real trainer and the
+    real server in one §3.3 cell, one multi-driver trace; non-empty serve
+    latencies, and the trace replays bit-identically."""
+    from repro_torch.sim import (live_colocated_sim, record_live_colocated,
+                                 serve_latency)
+
+    def check(rep, ledger, labels):
+        if not serve_latency(rep):
+            raise AssertionError("live_colocated: no serve latencies")
+    rep, ledger, counts, labels = _recorded_phase(
+        torch, dev, record_live_colocated, live_colocated_sim,
+        "live_colocated", check)
+    if min(counts[k] for k in ("flash_attention", "flash_attention_bwd",
+                               "decode_attention")) < 1:
+        raise AssertionError(f"live_colocated: launches {counts}")
+    emit("live_colocated", status=rep.status, vtime_ns=rep.vtime_ns,
+         serve_latency=serve_latency(rep), labels=labels,
+         serve_probe=ledger.meta.get("serve_probe"), launches=counts,
+         replays_equal=["barrier", "async"])
+
+
 def main() -> int:
     card = use_one_card()
     import numpy as np
@@ -1667,6 +2133,7 @@ def main() -> int:
     campaign_main_launches = phase_campaign_main(torch, dev)
     campaign_launches = phase_campaign(torch, dev)
     fa = phase_flash_attention(torch, np, dev)
+    fb = phase_flash_attention_bwd(torch, np, dev)
     da = phase_decode_attention(torch, np, dev)
     rg = phase_rglru_scan(torch, np, dev)
     ml = phase_mlstm_chunkwise(torch, np, dev)
@@ -1681,12 +2148,16 @@ def main() -> int:
     phase_serve_parity(torch, np, dev, SERVE_XLSTM[0], PARITY_XLSTM,
                        "serve_parity_xlstm")
     phase_live_serve(torch, dev)
+    by_path["train"] = phase_train(torch, np, dev)
+    by_path["train_parity"] = phase_train_parity(torch, np, dev)
+    phase_live_recovery(torch, dev)
+    phase_live_colocated(torch, dev)
     paths = {k: {"main_path": launches[k], "sweep": sweep_launches[k],
                  "campaign_main": campaign_main_launches[k],
                  "campaign": campaign_launches[k]}
              for k in ("minskew", "hub_route")}
-    for kname in ("flash_attention", "decode_attention", "rglru_scan",
-                  "mlstm_chunkwise"):
+    for kname in ("flash_attention", "flash_attention_bwd",
+                  "decode_attention", "rglru_scan", "mlstm_chunkwise"):
         paths[kname] = {p: c[kname] for p, c in by_path.items() if c[kname]}
     kernels = []
     for kname, row, src, tpu in (
@@ -1697,6 +2168,10 @@ def main() -> int:
             ("flash_attention", fa,
              "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:91"),
+            ("flash_attention_bwd", fb,
+             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "gradient of src/repro/kernels/flash_attention.py:91 (the JAX "
+             "package differentiates its jnp attention; no Pallas kernel)"),
             ("decode_attention", da,
              "src/repro_torch/kernels/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:74"),

@@ -30,8 +30,8 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("minskew", "hub_route", "flash_attention", "flash_attention_sm90",
-           "decode_attention", "rglru_scan", "mlstm_kernel",
-           "mlstm_kernel_sm90", "launch_floor")
+           "flash_attention_bwd", "decode_attention", "rglru_scan",
+           "mlstm_kernel", "mlstm_kernel_sm90", "launch_floor")
 
 
 class KernelArgumentError(ValueError):
@@ -40,6 +40,20 @@ class KernelArgumentError(ValueError):
     catch that behave as before; its own type lets a caller that falls
     back on a ``ValueError`` of the simulator's surface tell the two
     apart."""
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` where autograd would differentiate
+    through a kernel that has no backward: grad mode on and an input that
+    requires grad.  A kernel's output has no ``grad_fn``, so without this
+    the gradient of everything upstream would be dropped silently.  For
+    CUDA tensors only: the CPU's plain versions stay differentiable."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: no backward kernel on the card yet (ROADMAP A8.2); "
+            f"run under torch.no_grad() or inference_mode, or on the CPU")
 
 
 _lock = threading.Lock()

@@ -18,7 +18,9 @@ On a CPU tensor the wrapper computes the plain version
 (:func:`repro_torch.kernels.ref.decode_attention_plain`); on a CUDA
 tensor it launches the kernels or raises.  Both paths check dtypes and
 shapes first.  ``decode_attention.launches`` counts calls that launched
-(each launches the split and the combine kernel once).
+(each launches the split and the combine kernel once).  Decode is not
+trained and the kernels have no backward: on a CUDA tensor under grad
+the wrapper raises (ROADMAP A8.2) rather than detach its output.
 """
 from __future__ import annotations
 
@@ -118,6 +120,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _check(q, k_cache, v_cache, lengths)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths)
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     return _launch(q, k_cache, v_cache, lengths)
 
 

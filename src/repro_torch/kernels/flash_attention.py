@@ -20,11 +20,22 @@ pair and head).  Two kernels, split by dtype:
   transposes for it), which keeps the float32 arithmetic of the parity
   runs (tensor-core TF32 would change it).
 
-On a CPU tensor the wrappers compute the plain version
-(:func:`repro_torch.kernels.ref.attention_flat_plain`); on a CUDA tensor
-they launch a kernel or raise.  Both paths check dtypes and shapes first.
-``flash_attention_flat.launches`` counts the launches of either kernel
-from either entry point.
+The gradient: ``csrc/flash_attention_bwd.cu`` (two CUDA-core kernels,
+float32 FMAs, bfloat16 or float32 tensors; see its head comment), bound
+through :class:`FlashAttention`, a ``torch.autograd.Function`` whose
+backward calls :func:`flash_attention_bwd`.  The (B, S, H, hd) entry
+point goes through it when grad mode is on and an input requires grad;
+otherwise (serving, under ``torch.inference_mode``) nothing is saved and
+the launches are the forward's alone.  The flat entry point has no
+gradient and raises on a CUDA tensor under grad rather than detach.
+
+On a CPU tensor the wrappers compute the plain versions
+(:func:`repro_torch.kernels.ref.attention_flat_plain`,
+:func:`repro_torch.kernels.ref.attention_flat_bwd_plain`); on a CUDA
+tensor they launch a kernel or raise.  Both paths check dtypes and
+shapes first.  ``flash_attention_flat.launches`` counts the launches of
+either forward kernel from either entry point,
+``flash_attention_bwd.launches`` the calls that launched the backward.
 """
 from __future__ import annotations
 
@@ -35,7 +46,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_flat_plain
+from repro_torch.kernels.ref import (attention_flat_bwd_plain,
+                                     attention_flat_plain)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +77,20 @@ def _lib_bf16():
                    _I, _I, ctypes.c_double, _P]
     fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd():
+    """The backward's launcher (both kernels, both dtypes), set up once."""
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = [*([_P] * 10), *([_L] * 15), *([_I] * 8), ctypes.c_double,
+                   _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def _grad_wanted(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def check_head_dim(name: str, hd: int) -> None:
@@ -125,6 +151,11 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_flat_plain(q, k, v, causal=causal, window=window)
     _on_cuda(q)
+    if _grad_wanted(q, k, v):
+        raise NotImplementedError(
+            "flash_attention_flat has no gradient on the card; call the "
+            "(B, S, H, hd) entry point (ops.flash_attention), whose "
+            "backward is csrc/flash_attention_bwd.cu")
     if q.dtype == torch.float32:
         return _launch_f32(q, k, v, causal, window)
     out = torch.empty_like(q)
@@ -148,8 +179,13 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elements or whose base is not 16-byte aligned is first copied to a
     contiguous one (a (B, S, H, hd) view of a projection's output needs
     none).  float32 on the card, and the CPU's plain version, take flat
-    (B*H, S, hd) copies."""
+    (B*H, S, hd) copies.
+
+    Under grad with an input that requires it, the call goes through
+    :class:`FlashAttention`, whose backward is :func:`flash_attention_bwd`."""
     _check_bshd(q, k, v)
+    if _grad_wanted(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cuda" and q.dtype == torch.bfloat16:
         b, s, h, hd = q.shape
         out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
@@ -227,3 +263,86 @@ def _launch_f32(q, k, v, causal, window):
 
 
 flash_attention_flat.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """(B, S, H, hd) attention with its gradient: forward through
+    :func:`flash_attention_bshd` (the forward kernels, or the plain version
+    on the CPU), backward through :func:`flash_attention_bwd`.  Saves q, k,
+    v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o = flash_attention_bshd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """The gradient of :func:`flash_attention_bshd`: q, o and do (B, Sq, H,
+    hd); k/v (B, Sk, Hkv, hd) -> (dq, dk, dv), each in the inputs' dtype
+    and shape; o is the forward's output and do the gradient of the loss
+    with respect to it.  dk and dv sum over the query heads of their
+    group; Sk = 0 gives dq = 0.
+
+    On CPU tensors: :func:`repro_torch.kernels.ref.attention_flat_bwd_plain`
+    on flat copies.  On CUDA tensors: ``csrc/flash_attention_bwd.cu``
+    through the tensors' strides (a tensor whose innermost stride is not 1
+    is first copied), or raise."""
+    _check_bshd(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, q {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if q.device.type == "cpu":
+        def flat(t):
+            return t.transpose(1, 2).reshape(b * t.shape[2], t.shape[1], hd)
+        dq, dk, dv = attention_flat_bwd_plain(
+            flat(q), flat(k), flat(v), flat(o), flat(do), causal=causal,
+            window=window)
+        return (dq.reshape(b, h, sq, hd).transpose(1, 2),
+                dk.reshape(b, hkv, sk, hd).transpose(1, 2),
+                dv.reshape(b, hkv, sk, hd).transpose(1, 2))
+    _on_cuda(q)
+    if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention_bwd: B={b}, H={h} exceed the "
+                         f"launch grid")
+    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
+                      for t in (q, k, v, o, do))
+    dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, hkv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if b == 0:
+        return dq, dk, dv
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    strides = [st for t in (q, k, v, o, do) for st in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib_bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                         dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                         dsum.data_ptr(), *strides, b, h, hkv, sq, sk, hd,
+                         int(causal), int(window), 1.0 / math.sqrt(hd),
+                         int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd kernel launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

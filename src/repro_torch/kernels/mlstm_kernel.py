@@ -38,7 +38,9 @@ chunk (:func:`mlstm_flat_plain`, over
 :func:`repro_torch.kernels.ref.mlstm_chunkwise_plain`); on a CUDA
 tensor it launches a kernel or raises.  Both paths check dtypes
 and shapes first.  ``mlstm_chunkwise.launches`` counts launches and
-``mlstm_chunkwise.source`` names the source of the last one.
+``mlstm_chunkwise.source`` names the source of the last one.  The
+kernels have no backward yet: on a CUDA tensor under grad the wrapper
+raises (ROADMAP A8.2) rather than return an output without a gradient.
 """
 from __future__ import annotations
 
@@ -167,6 +169,7 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, i_raw, f_raw, c0, n0)
     if q.device.type == "cpu":
         return mlstm_flat_plain(q, k, v, i_raw, f_raw, c0, n0)
+    _build.refuse_grad("mlstm_chunkwise", q, k, v, i_raw, f_raw, c0, n0)
     return _launch(*pad_tail(q, k, v, i_raw, f_raw), c0, n0, q.shape[1])
 
 

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's kernels, plus the numpy oracles.
 
-``minskew_plain``, ``hub_route_plain``, ``attention_flat_plain``,
-``decode_attention_plain``, ``rglru_plain`` and ``mlstm_chunkwise_plain``
-compute what the CUDA kernels compute, with ordinary tensor ops: the CPU
-path of every wrapper, and what ``chip_smoke.py`` holds each kernel
-against on the card.  ``minskew_ref``, ``hub_visibility_ref`` and
+``minskew_plain``, ``hub_route_plain``, ``attention_flat_plain`` (and
+its gradient ``attention_flat_bwd_plain``), ``decode_attention_plain``,
+``rglru_plain`` and ``mlstm_chunkwise_plain`` compute what the CUDA
+kernels compute, with ordinary tensor ops: the CPU path of every
+wrapper, and what ``chip_smoke.py`` holds each kernel against on the
+card.  ``minskew_ref``, ``hub_visibility_ref`` and
 ``mlstm_seq_plain`` are the sequential oracles of the JAX package.  The
 scheduler results are integer, so those agree bit for bit; attention and
 the recurrences agree within a floating-point tolerance (sums taken in
@@ -57,6 +58,46 @@ def attention_flat_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.where(mask[None], torch.softmax(s, dim=-1), 0.0)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def attention_flat_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0):
+    """The gradient of :func:`attention_flat_plain`: q, o, do (BH, Sq,
+    hd); k/v (BHkv, Sk, hd) -> (dq, dk, dv) in the inputs' dtype.
+
+    The explicit formulas in float32, from the forward's output ``o``
+    (what ``csrc/flash_attention_bwd.cu`` computes): p is the forward's
+    masked softmax, ``D_i = do_i . o_i``, ``ds = p (do v^T - D)``,
+    ``dq = scale ds k``, ``dk = scale ds^T q`` and ``dv = p^T do``; dk
+    and dv sum over the query rows of their kv row's group.  Sk = 0
+    gives dq = 0."""
+    bh, sq, hd = q.shape
+    bhkv, sk, _ = k.shape
+    qpk = bh // bhkv
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(qpk, dim=0)
+    vf = v.float().repeat_interleave(qpk, dim=0)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.where(mask[None], torch.softmax(s, dim=-1), 0.0)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dk = dk.view(bhkv, qpk, sk, hd).sum(dim=1)
+    dv = dv.view(bhkv, qpk, sk, hd).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # -- decode attention -------------------------------------------------------------

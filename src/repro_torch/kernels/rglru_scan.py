@@ -19,7 +19,9 @@ recurrence from the carry.  See the source note.
 On a CPU tensor the wrapper computes the plain version
 (:func:`repro_torch.kernels.ref.rglru_plain`); on a CUDA tensor it
 launches the kernel or raises.  Both paths check dtypes and shapes
-first.  ``rglru_scan.launches`` counts launches.
+first.  ``rglru_scan.launches`` counts launches.  The kernel has no
+backward yet: on a CUDA tensor under grad the wrapper raises (ROADMAP
+A8.2) rather than return an output without a gradient.
 """
 from __future__ import annotations
 
@@ -93,6 +95,7 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
     _check(log_a, b, h0)
     if log_a.device.type == "cpu":
         return rglru_plain(log_a, b, h0)
+    _build.refuse_grad("rglru_scan", log_a, b, h0)
     return _launch(log_a, b, h0)
 
 

@@ -42,7 +42,7 @@ def decode_attention_sp(q, k_cache, v_cache, cache_len):
     a device mesh in the JAX package): mesh code, not ported."""
     raise NotImplementedError(
         "decode_attention_sp shards the KV cache over a device mesh; the "
-        "port has no mesh yet (ROADMAP A8)")
+        "port's mesh is logical, over one card (ROADMAP A12)")
 
 
 def decode_attention(

@@ -5,8 +5,8 @@ tree: per-layer parameters are stacked with a leading ``L`` dimension
 (``params["layers"]["wq"]`` is ``(L, d, H, hd)``), so a JAX parameter
 tree crosses to the port leaf for leaf (``repro_torch.models.convert``)
 and both packages compute the same function.  A Python loop over the
-leading dimension stands in for ``lax.scan``; remat is a training
-concern and is not ported with serving.
+leading dimension stands in for ``lax.scan``; :func:`maybe_remat` is
+the JAX package's remat for training.
 
 Every function keeps the JAX arithmetic: norms, RoPE and the SiLU run
 in float32 and cast back to the input's dtype.
@@ -210,6 +210,43 @@ def pick(tree: dict, i: int) -> dict:
     included."""
     return {k: pick(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def unstack(tree: dict, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, each leaf split once
+    by ``unbind(0)``.  Under autograd, indexing a stacked leaf per layer
+    would give every layer's backward a zero-filled gradient of the whole
+    leaf; ``unbind``'s backward stacks the layers' gradients once."""
+    out = [dict() for _ in range(n)]
+
+    def walk(sub, dst):
+        for k, v in sub.items():
+            if isinstance(v, dict):
+                children = [d.setdefault(k, {}) for d in dst]
+                walk(v, children)
+            else:
+                for d, t in zip(dst, v.unbind(0)):
+                    d[k] = t
+    walk(tree, out)
+    return out
+
+
+def maybe_remat(cfg: "ModelConfig", fn):
+    """``fn`` recomputed in the backward when ``cfg.remat`` and grad mode
+    is on (``torch.utils.checkpoint``, non-reentrant; the JAX package's
+    ``maybe_remat`` with the policy "nothing": no intermediate is saved),
+    else ``fn`` itself.  Only that policy is ported."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    if cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not ported; "
+            f"only 'nothing'")
+    from torch.utils.checkpoint import checkpoint
+
+    def remat(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return remat
 
 
 def zeros_from_specs(specs: dict, dtype, device) -> dict:

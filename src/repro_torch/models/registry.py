@@ -3,7 +3,7 @@ architecture exposes one uniform interface.
 
 The ``dense``, ``rglru`` and ``xlstm`` families are ported; ``moe``,
 ``encdec`` and ``vlm`` wait for ROADMAP A11.  The sharding metadata
-(``logical_axes``, ``cache_axes``) waits for the mesh code (A8).
+(``logical_axes``, ``cache_axes``) waits for the mesh code (A12).
 """
 from __future__ import annotations
 

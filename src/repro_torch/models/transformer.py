@@ -8,7 +8,8 @@ kernels (:mod:`repro_torch.models.attention`).
 
 Not ported here: MoE layers (``n_experts > 0``) and multimodal frontends
 (ROADMAP A11), and the mesh options ``tp_attention`` and ``sp_decode``
-(ROADMAP A8); each raises ``NotImplementedError``.
+(ROADMAP A12: the port's mesh is logical, over one card); each raises
+``NotImplementedError``.
 
 Parameters keep the JAX tree, layers stacked on a leading ``L``
 dimension; the KV cache is ``{"k", "v": (L, B, max_len, Hkv, hd),
@@ -38,7 +39,7 @@ def check_dense(cfg: ModelConfig) -> None:
     if cfg.tp_attention or cfg.sp_decode:
         raise NotImplementedError(
             f"{cfg.name}: tp_attention and sp_decode are mesh options; the "
-            f"port has no mesh yet (ROADMAP A8)")
+            f"port's mesh is logical, over one card (ROADMAP A12)")
 
 
 # ---------------------------------------------------------------------------
@@ -159,19 +160,30 @@ def _ffn_block(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _block(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+           lp: dict) -> torch.Tensor:
+    """One decoder layer of the scoring / training forward."""
+    q, k, v = _qkv(cfg, lp, x, positions)
+    o = attn.multi_head_attention(q, k, v, causal=True, window=cfg.window)
+    return _ffn_block(cfg, lp, _out_proj(lp, x, o))
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend_embeds=None, return_aux: bool = False):
     """tokens (B, S) -> logits (B, S, V) float32 [+ aux loss, 0 for a
-    dense model]."""
+    dense model].
+
+    Trainable: under grad, ``cfg.remat`` recomputes each layer in the
+    backward (:func:`common.maybe_remat`, the JAX package's
+    ``maybe_remat``), and the per-layer parameters are taken by one
+    ``unbind`` of each stacked leaf (:func:`common.unstack`), whose
+    backward stacks the layers' gradients once."""
     check_dense(cfg)
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layer(params, i)
-        q, k, v = _qkv(cfg, lp, x, positions)
-        o = attn.multi_head_attention(q, k, v, causal=True,
-                                      window=cfg.window)
-        x = _ffn_block(cfg, lp, _out_proj(lp, x, o))
+    block = cm.maybe_remat(cfg, _block)
+    for lp in cm.unstack(params["layers"], cfg.n_layers):
+        x = block(cfg, x, positions, lp)
     logits = cm.final_logits(cfg, params, x)
     if return_aux:
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -3,7 +3,7 @@ and single-token decode.
 
 The JAX module's ``serve_rules`` and ``cache_shardings`` shard the
 cache over a device mesh; they wait for the port's mesh code (ROADMAP
-A8).
+A12: the port trains and serves on one card, its mesh logical).
 """
 from __future__ import annotations
 

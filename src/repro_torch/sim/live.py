@@ -22,9 +22,8 @@ deterministic.  This module is that subsystem for the facade:
   ``SimulatedHostFailure`` machinery), restores the last committed
   checkpoint, elastically re-meshes, and resumes — emitting a recovery
   timeline (detect → restore → re-mesh → resumed vtimes) into
-  ``SimReport.live``.  The port has no trainer yet (ROADMAP A8):
-  :class:`TrainerStack` raises, so this scenario and the co-located one
-  replay recorded traces only.
+  ``SimReport.live``.  :class:`TrainerStack` runs the port's trainer on
+  ``device`` (the card unless the caller asks for the CPU).
 * :func:`live_recovery_sim` / :func:`record_live_recovery` — the
   canned marquee scenario builder (scenario parameters travel inside
   the trace's ``meta`` so a replay reconstructs exactly the recorded
@@ -51,6 +50,7 @@ re-derives exactly from the pinned costs (see ``repro_torch.live.recorder``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -190,21 +190,25 @@ class LiveProgram(Workload):
 
 
 class TrainerStack:
-    """Record-mode binding of the real trainer to the live recovery
-    driver's phases (``setup``, ``step``, ``save``, ``restore``,
-    ``remesh``, ``close``).
+    """Record-mode binding of the real trainer
+    (:class:`~repro_torch.runtime.trainer.Trainer`) to the live recovery
+    driver's phases, on ``device`` (``None`` means CUDA and raises
+    without it; replay passes ``stack=None`` and needs none of it).
 
-    The port has no trainer yet (ROADMAP A8: optimizer, data,
-    checkpoint, runtime and the mesh), so every phase raises
-    ``NotImplementedError``: :func:`record_live_recovery` and
-    :func:`record_live_colocated` raise in record mode.  Replay passes
-    ``stack=None`` and needs none of it."""
+    Every phase that runs work on the device ends in a device
+    synchronize (where the JAX package blocks until ready), so a
+    recorded span times the work.  The mesh is logical on the port's one
+    card (``repro_torch.launch.mesh``): ``data`` is clamped to the devices
+    there are, as the JAX package clamps it, so (2, 1) and the re-mesh's
+    (1, 1) are both (1, 1) and ``remesh`` rebuilds the step and re-places
+    the state on the same card."""
 
     def __init__(self, *, arch: str = "qwen3_4b", n_steps: int = 8,
                  seq_len: int = 32, global_batch: int = 4,
                  mesh_shape: Sequence[int] = (2, 1),
                  remesh_shape: Sequence[int] = (1, 1),
-                 checkpoint_dir: Optional[str] = None, seed: int = 0):
+                 checkpoint_dir: Optional[str] = None, seed: int = 0,
+                 device=None):
         self.arch = arch
         self.n_steps = n_steps
         self.seq_len = seq_len
@@ -213,28 +217,97 @@ class TrainerStack:
         self.remesh_shape = tuple(remesh_shape)
         self.checkpoint_dir = checkpoint_dir
         self.seed = seed
+        self.device = device
+        self.trainer = None
+        self.params = self.opt = None
+        self._ctx = contextlib.ExitStack()
+        self._tmp_dir: Optional[str] = None
+
+    def _mesh(self, shape):
+        from repro_torch.launch.mesh import make_test_mesh
+        data, model = shape
+        ndev = 1          # the one card (or the CPU) the trainer runs on
+        data = max(1, min(int(data), ndev // max(1, int(model))))
+        return make_test_mesh(data=data, model=int(model))
+
+    def _sync(self) -> None:
+        from repro_torch.serve.loop import sync
+        sync(self.trainer.device)
 
     def setup(self) -> None:
-        raise NotImplementedError(
-            "TrainerStack: the training stack (optimizer, data, "
-            "checkpoint, trainer, mesh) is not ported yet (ROADMAP A8); "
-            "record live recovery with the JAX package and replay its "
-            "trace here")
+        if self.trainer is not None:
+            return
+        import dataclasses
+        import tempfile
+
+        from repro_torch import configs
+        from repro_torch.core.engine_torch import resolve_device
+        from repro_torch.parallel import ctx as pctx
+        from repro_torch.runtime.trainer import Trainer, TrainerConfig
+        dev = resolve_device(self.device, "the trainer")
+        cfg = dataclasses.replace(configs.get_smoke(self.arch),
+                                  remat=False)
+        ckpt_dir = self.checkpoint_dir
+        if ckpt_dir is None:
+            ckpt_dir = self._tmp_dir = tempfile.mkdtemp(
+                prefix="repro_live_ckpt_")
+        tcfg = TrainerConfig(
+            n_steps=self.n_steps, seq_len=self.seq_len,
+            global_batch=self.global_batch,
+            # the live driver controls checkpoint cadence itself
+            checkpoint_every=10 ** 9, checkpoint_dir=ckpt_dir,
+            checkpoint_async=False, log_every=10 ** 9, seed=self.seed)
+        mesh = self._mesh(self.mesh_shape)
+        self.trainer = Trainer(cfg, tcfg, mesh=mesh,
+                               injector=FailureInjector(),
+                               log_fn=lambda _s: None, device=dev)
+        self._ctx.enter_context(pctx.use_mesh(mesh))
+        self.params, self.opt = self.trainer.init_state()
+        # warm up (kernel build and load, allocator) so recorded step
+        # costs are steady-state (an unrecorded step 0 on synthetic data)
+        self.step(0)
 
     def step(self, step: int) -> None:
-        self.setup()
+        self.params, self.opt, metrics = self.trainer.step(
+            self.params, self.opt, step, self.trainer.data.batch(step))
+        self._sync()
 
     def save(self, step: int) -> None:
-        self.setup()
+        self.trainer.ckpt.save({"params": self.params, "opt": self.opt},
+                               step, blocking=True)
+        self._sync()
 
     def restore(self) -> int:
-        self.setup()
+        self.params = self.opt = None
+        self.params, self.opt, step = self.trainer._recover()
+        self._sync()
+        return step
 
     def remesh(self) -> None:
-        self.setup()
+        """Elastic re-mesh after the simulated host loss: rebuild the
+        (logical) mesh at the post-failure shape, rebuild the train step,
+        and re-place the restored state on the card."""
+        from repro_torch.optim.adamw import tree_map
+        from repro_torch.parallel import ctx as pctx
+        mesh = self._mesh(self.remesh_shape)
+        self.trainer.mesh = mesh
+        self.trainer._build()
+        dev = self.trainer.device
+        self.params = tree_map(lambda t: t.to(dev), self.params)
+        self.opt = tree_map(lambda t: t.to(dev), self.opt)
+        self._ctx.close()
+        self._ctx = contextlib.ExitStack()
+        self._ctx.enter_context(pctx.use_mesh(mesh))
+        self._sync()
 
     def close(self) -> None:
-        pass
+        if self.trainer is not None:
+            self.trainer.ckpt.wait()
+        self._ctx.close()
+        if self._tmp_dir is not None:       # made by setup: remove it
+            import shutil
+            shutil.rmtree(self._tmp_dir, ignore_errors=True)
+            self._tmp_dir = None
 
 
 class LiveTrainerRecovery(Workload):
@@ -541,7 +614,7 @@ def live_recovery_sim(ledger: CostLedger, *,
 def record_live_recovery(out_path, *, arch: str = "qwen3_4b",
                          seq_len: int = 32, global_batch: int = 4,
                          calibration: float = 1.0,
-                         engine: str = "async", **overrides):
+                         engine: str = "async", device=None, **overrides):
     """One-shot recorder for the canned recovery scenario: run the real
     sharded trainer under simulated time, measure every phase, and save
     the trace to ``out_path``.  Returns ``(report, ledger)``.
@@ -554,7 +627,8 @@ def record_live_recovery(out_path, *, arch: str = "qwen3_4b",
     params = dict(RECOVERY_DEFAULTS)
     params.update(overrides)
     stack = TrainerStack(arch=arch, n_steps=params["n_steps"],
-                         seq_len=seq_len, global_batch=global_batch)
+                         seq_len=seq_len, global_batch=global_batch,
+                         device=device)
     stack.setup()
     if "fail_at_vtime" not in overrides:
         t0 = _time.perf_counter_ns()
@@ -869,7 +943,7 @@ def record_live_colocated(out_path, *, arch: str = "qwen3_4b",
     train_stack = TrainerStack(arch=arch, n_steps=tp["n_steps"],
                                seq_len=seq_len,
                                global_batch=global_batch,
-                               mesh_shape=(1, 1))
+                               mesh_shape=(1, 1), device=device)
     serve_stack = ServeStack(arch=arch, max_batch=sp["max_batch"],
                              prompt_len=prompt_len,
                              decode_steps=sp["decode_steps"],

@@ -169,7 +169,7 @@ def test_model_attention_not_on_path_raises():
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tattn.multi_head_attention(q, q, q, q_offset=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tattn.decode_attention_sp(q, q, q, 1)
 
 

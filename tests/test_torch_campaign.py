@@ -78,9 +78,18 @@ def comparable(report) -> dict:
 
 @pytest.fixture(scope="module")
 def reports():
-    """{ref: (port report, JAX report)}, each run once."""
-    return {ref: (port_campaign(ref).run(), jax_campaign(ref).run())
-            for ref in BASES}
+    """{ref: (port report, JAX report)}, each run once, each package's
+    vtask ids counted from 0: a deadlock's detail names its tasks by id,
+    and the tests that ran before in this process made other tasks."""
+    from repro.core.vtask import VTask as JVTask
+    from repro_torch.core.vtask import VTask as TVTask
+    out = {}
+    for ref in BASES:
+        TVTask._next_id = 0
+        port = port_campaign(ref).run()
+        JVTask._next_id = 0
+        out[ref] = (port, jax_campaign(ref).run())
+    return out
 
 
 # -- grid --------------------------------------------------------------------

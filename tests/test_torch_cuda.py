@@ -1,5 +1,7 @@
-"""The port's recurrent kernels and models on the card, against their
-plain versions.  Marked ``cuda``: without a CUDA card every test skips
+"""The port's kernels and models on the card, against their plain
+versions, and the training path's gradient (the flash backward kernel,
+three train steps against the CPU, the recurrent kernels' raise under
+grad).  Marked ``cuda``: without a CUDA card every test skips
 (decided in the fixture, not at import).  This file imports neither JAX
 nor the JAX package, so it runs on a machine with the card alone:
 
@@ -180,6 +182,152 @@ def test_flash_strided_views_vs_plain(dev, dtype, kind):
         *(t.transpose(1, 2).reshape(-1, s, hd).contiguous()
           for t in (q, k, v)), causal=True, window=40)
     _close(got, want.view(b, h, s, hd).transpose(1, 2), dtype)
+
+
+# (B, H, Hkv, Sq, Sk, hd, causal, window): the trainer's full-width shape
+# (qwen3_4b, B=4, S=1,024), recurrentgemma's window shape, the forward's
+# edge shapes and Sk = 0
+FLASH_BWD = ([(4, 32, 8, 1024, 1024, 128, True, 0),
+              (1, 16, 1, 3072, 3072, 256, True, 2048)]
+             + [e for e in FLASH_EDGE if e[3] > 1]
+             + [(2, 4, 2, 30, 0, 64, True, 0)])
+
+
+def _flash_bwd_case(dev, dtype, b, h, hkv, sq, sk, hd, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, sq, h, hd, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, hkv, hd, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _flash_bwd_plain(q, k, v, o, do, causal, window):
+    from repro_torch.kernels.ref import attention_flat_bwd_plain
+    b, hd = q.shape[0], q.shape[-1]
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(b * t.shape[2], t.shape[1], hd)
+    grads = attention_flat_bwd_plain(flat(q), flat(k), flat(v), flat(o),
+                                     flat(do), causal=causal, window=window)
+    return [w.reshape(b, t.shape[2], t.shape[1], hd).transpose(1, 2)
+            for w, t in zip(grads, (q, k, v))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal,window", FLASH_BWD)
+def test_flash_bwd_kernel_vs_plain(dev, dtype, b, h, hkv, sq, sk, hd,
+                                   causal, window):
+    """The backward kernel against ``attention_flat_bwd_plain`` (relative
+    to max(1, largest |plain gradient|)), one launch a call, two calls
+    bit-equal."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bshd,
+                                                     flash_attention_bwd)
+    q, k, v, do = _flash_bwd_case(dev, dtype, b, h, hkv, sq, sk, hd)
+    with torch.no_grad():
+        o = flash_attention_bshd(q, k, v, causal=causal, window=window)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    assert flash_attention_bwd.launches == before + 2
+    for a, c, w in zip(got, again, _flash_bwd_plain(q, k, v, o, do, causal,
+                                                    window)):
+        assert a.shape == w.shape and torch.equal(a, c)
+        if w.numel():
+            _close(a, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_strided_views(dev, dtype):
+    """``ops.flash_attention`` under grad on q, k, v sliced from one fused
+    projection: forward and backward kernels once each, the gradient of
+    the fused tensor equal to the plain backward's."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_flat)
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, s, h, hkv, hd = 2, 150, 8, 2, 64
+    x = torch.randn(b, s, h + 2 * hkv, hd, generator=g,
+                    device=dev).to(dtype).requires_grad_()
+    q, k, v = x[:, :, :h], x[:, :, h:h + hkv], x[:, :, h + hkv:]
+    do = torch.randn(b, s, h, hd, generator=g, device=dev).to(dtype)
+    fwd, bwd = flash_attention_flat.launches, flash_attention_bwd.launches
+    o = ops.flash_attention(q, k, v, causal=True, window=40)
+    (gx,) = torch.autograd.grad(o, (x,), do)
+    assert flash_attention_flat.launches == fwd + 1
+    assert flash_attention_bwd.launches == bwd + 1
+    want = _flash_bwd_plain(q.detach(), k.detach(), v.detach(), o.detach(),
+                            do, True, 40)
+    _close(gx, torch.cat(want, dim=2), dtype)
+
+
+def test_kernels_raise_under_grad_on_the_card(dev):
+    """No backward kernel: on CUDA tensors under grad the wrappers raise
+    (ROADMAP A8.2) instead of returning an output without a gradient."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_flat
+    log_a, bv, _ = _rglru_inputs(dev, 1, 16, 32, False)
+    with pytest.raises(NotImplementedError, match="A8.2"):
+        ops.rglru(log_a, bv.requires_grad_())
+    q, k, v = (torch.randn(1, 64, 2, 16, device=dev, requires_grad=True)
+               for _ in range(3))
+    gates = torch.randn(1, 64, 2, device=dev)
+    with pytest.raises(NotImplementedError, match="A8.2"):
+        ops.mlstm(q, k, v, gates, gates)
+    cache = torch.randn(2, 32, 2, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="A8.2"):
+        ops.decode_attention(torch.randn(2, 4, 16, device=dev,
+                                         requires_grad=True), cache, cache,
+                             torch.full((2,), 32, dtype=torch.int32,
+                                        device=dev))
+    with pytest.raises(NotImplementedError, match="ops.flash_attention"):
+        flash_attention_flat(*(t[0].transpose(0, 1).contiguous()
+                               for t in (q, k, v)))
+    with torch.no_grad():                   # serving is untouched
+        assert ops.rglru(log_a, bv).shape == log_a.shape
+
+
+def test_train_steps_card_vs_cpu(dev):
+    """Three steps of the qwen3_4b smoke config in float32 with remat, the
+    same parameters and batches on the card and on the CPU: losses and
+    grad norms within 1e-4 relative, parameters and moments within 1e-4
+    x max(1, scale); on the card the attention's forward (twice a layer:
+    remat) and backward kernels launch."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_flat)
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.step import build_train_step
+    cfg = dataclasses.replace(configs.get_smoke("qwen3_4b"),
+                              dtype=torch.float32, remat=True)
+    params = registry.init(cfg, torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    cpu = tree_map(lambda t: t.cpu(), params)
+    states = {"card": (params, adamw_init(params)),
+              "cpu": (cpu, adamw_init(cpu))}
+    step = build_train_step(cfg, lr_kwargs=dict(peak_lr=1e-3, warmup=1,
+                                                total=10))
+    fwd, bwd = flash_attention_flat.launches, flash_attention_bwd.launches
+    for i in range(3):
+        out = {}
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            data = SyntheticLMData(vocab=cfg.vocab, seq_len=64,
+                                   global_batch=2, device=d)
+            p, o, m = step(*states[where], i, data.batch(i))
+            states[where] = (p, o)
+            out[where] = m
+        for key in ("loss", "grad_norm"):
+            a, c = float(out["card"][key]), float(out["cpu"][key])
+            assert abs(a - c) <= 1e-4 * abs(c), (i, key, a, c)
+    assert flash_attention_flat.launches - fwd == 3 * 2 * cfg.n_layers
+    assert flash_attention_bwd.launches - bwd == 3 * cfg.n_layers
+    (pc, oc), (ph, oh) = states["card"], states["cpu"]
+    for a, c in zip(tree_leaves({"p": pc, "m": oc["m"], "v": oc["v"]}),
+                    tree_leaves({"p": ph, "m": oh["m"], "v": oh["v"]})):
+        _close(a.cpu(), c)
 
 
 # (B, H, Hkv, S, hd, lengths): "edges" is chunk - 1, chunk, chunk + 1 and

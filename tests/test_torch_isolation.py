@@ -40,10 +40,15 @@ def test_port_files_exist():
                 "models/transformer.py", "models/rglru.py",
                 "models/xlstm.py", "serve/loop.py", "sim/live.py",
                 "sim/control.py", "sim/campaign.py", "sim/registry.py",
-                "dist/coordinator.py", "dist/worker.py", "dist/frames.py"):
+                "dist/coordinator.py", "dist/worker.py", "dist/frames.py",
+                "optim/adamw.py", "optim/schedule.py", "optim/compress.py",
+                "train/step.py", "data/pipeline.py",
+                "checkpoint/manager.py", "runtime/trainer.py",
+                "parallel/ctx.py", "launch/mesh.py", "live/__main__.py"):
         assert f"repro_torch/{mod}" in names, mod
     for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",
-                "decode_attention.cu", "rglru_scan.cu", "mlstm_kernel.cu"):
+                "decode_attention.cu", "rglru_scan.cu", "mlstm_kernel.cu",
+                "flash_attention_bwd.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file()
 
@@ -95,6 +100,15 @@ def test_port_runs_with_jax_and_repro_blocked():
             out = BatchServer(cfg, params, max_new_tokens=3,
                               device="cpu").generate([[1, 2, 3, 4] * 3])
             assert out["tokens"].shape == (1, 3), out["tokens"].shape
+        import dataclasses
+        import tempfile
+        from repro_torch.runtime import Trainer, TrainerConfig
+        cfg = dataclasses.replace(configs.get_smoke("qwen3_4b"), remat=True)
+        tcfg = TrainerConfig(n_steps=2, seq_len=16, global_batch=2,
+                             checkpoint_every=1, checkpoint_async=False,
+                             checkpoint_dir=tempfile.mkdtemp())
+        out = Trainer(cfg, tcfg, log_fn=lambda s: None, device="cpu").run()
+        assert out["final_step"] == 2, out
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad

@@ -165,7 +165,7 @@ def test_non_dense_families_raise(arch):
 
 @pytest.mark.parametrize("field,value,item", [
     ("n_experts", 4, "A11"), ("frontend", "patch", "A11"),
-    ("tp_attention", True, "A8"), ("sp_decode", True, "A8")])
+    ("tp_attention", True, "A12"), ("sp_decode", True, "A12")])
 def test_dense_options_not_ported_raise(field, value, item):
     cfg = dataclasses.replace(tconfigs.get_smoke("qwen3_4b"),
                               **{field: value})
