@@ -10,8 +10,8 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — the ten CUDA sources (the six kernels, the attention backward
-   and the empty ``launch_floor`` kernel) compiled from
+2. build — the eleven CUDA sources (the six kernels, the two attention
+   backwards and the empty ``launch_floor`` kernel) compiled from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
 3. launch_floor — an empty kernel launched through the same ctypes
    route, timed: what one launch costs, beside every bytes bound;
@@ -57,14 +57,17 @@ One JSON line per phase:
    untimed at hd 8, 24 and 40, one query row, Sq < Sk under the causal
    mask and a window narrower than a key tile, and through
    ``ops.flash_attention`` on non-contiguous (B, S, H, hd) views;
-11b. flash_attention_bwd — the attention backward kernel
-   (``csrc/flash_attention_bwd.cu``) vs its plain version
-   (``attention_flat_bwd_plain``) at the trainer's shape (B=4, S=1,024,
-   32/8 heads, hd 128, causal; bfloat16 and float32, timed beside SDPA's
+11b. flash_attention_bwd — the attention backward kernels vs their plain
+   version (``attention_flat_bwd_plain``): bfloat16 up to hd 128 on the
+   tensor cores (``csrc/flash_attention_bwd_sm90.cu``), float32 and hd
+   256 on the CUDA cores (``csrc/flash_attention_bwd.cu``), each case
+   with the source that ran; at the trainer's shape (B=4, S=1,024, 32/8
+   heads, hd 128, causal; bfloat16 and float32, timed beside SDPA's
    backward, two calls bit-equal), recurrentgemma's window shape (MQA,
-   hd 256, window 2,048) and the forward's edge shapes (hd 8/24/40,
-   Sq < Sk, a window narrower than a key tile, Sk = 0), and through
-   ``ops.flash_attention`` under autograd on non-contiguous views;
+   hd 256, window 2,048) and the edge shapes (hd 8/24/40/64/96, Sq < Sk,
+   Sq and Sk off the tiles, GQA 8, windows 5 and 40, Sk = 0), and
+   through ``ops.flash_attention`` under autograd on non-contiguous
+   views;
 12. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
    hd=128, S=1056, ragged lengths), at S=8192, at recurrentgemma's
    ring buffer (S=2,048, MQA, hd 256) and the edge shapes: lengths on
@@ -900,7 +903,10 @@ def phase_check_interval(torch, np, dev, axis, tick: int,
 #: kernel, fp32 flash the CUDA-core one (one launch either way); decode
 #: runs the split kernel and the combine kernel
 FLASH_KERNELS = ("flash_sm90_kernel", "flash_kernel")
-FLASH_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkdv")
+#: the attention backward: the tensor-core pair (bf16 up to hd 128) or the
+#: CUDA-core pair, two kernels a call either way; no name contains another
+FLASH_BWD_KERNELS = ("flash_bwd_sm90_q", "flash_bwd_sm90_kv", "flash_bwd_dq",
+                     "flash_bwd_dkdv")
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 #: (case, B, H, Hkv, Sq, Sk, hd, causal, window, timed): the serving
 #: path's prefill shape, a longer prompt, recurrentgemma's prefill,
@@ -994,7 +1000,9 @@ MLSTM_CASES = [(16, 1024, 1024, False, True, BOTH),
 #: recurrentgemma's window shape (MQA, hd 256, window 2,048), and the
 #: forward phase's edge shapes: hd 8/24/40, GQA with a padded tail, fewer
 #: queries than keys under the causal mask, a window narrower than a key
-#: tile, and Sk = 0
+#: tile, and Sk = 0; and on the bf16 tensor-core route hd 64 (GQA 8, a
+#: window of 40, S off the tiles) and hd 96 (Sq < Sk, both off the tiles),
+#: and a window of 5 at hd 64
 FLASH_BWD_CASES = [("train", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                    ("rglru_window", 1, 16, 1, 3072, 3072, 256, True, 2048,
                     False),
@@ -1006,7 +1014,11 @@ FLASH_BWD_CASES = [("train", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                    ("sq_lt_sk_causal", 1, 4, 2, 50, 300, 128, True, 0,
                     False),
                    ("window5", 1, 4, 2, 200, 200, 256, True, 5, False),
-                   ("sk0", 2, 4, 2, 30, 0, 64, True, 0, False)]
+                   ("sk0", 2, 4, 2, 30, 0, 64, True, 0, False),
+                   ("hd64_gqa8_window40", 2, 16, 2, 300, 300, 64, True, 40,
+                    False),
+                   ("hd96_sq_lt_sk", 1, 8, 2, 190, 257, 96, True, 0, False),
+                   ("hd64_window5", 1, 4, 2, 200, 200, 64, True, 5, False)]
 #: the training path: (arch, global batch, sequence length, warm-up steps,
 #: timed steps), full width and depth in bfloat16 with the config's remat
 TRAIN = ("qwen3_4b", 4, 1024, 1, 4)
@@ -1748,10 +1760,19 @@ def _bwd_err(got, want) -> tuple:
     return err, scale
 
 
+def _bwd_route(torch, dt, hd) -> str:
+    """The source the backward's route table must pick."""
+    from repro_torch.kernels.flash_attention import uses_sm90_bwd
+    return ("flash_attention_bwd_sm90.cu" if uses_sm90_bwd(dt, hd)
+            else "flash_attention_bwd.cu")
+
+
 def phase_flash_attention_bwd(torch, np, dev):
-    """The attention backward kernel (``csrc/flash_attention_bwd.cu``)
-    against its plain version (``attention_flat_bwd_plain``) on the card,
-    within ``ATTN_TOL`` x max(1, largest |plain gradient|); timed at the
+    """The attention backward kernels (``csrc/flash_attention_bwd_sm90.cu``
+    for bf16 up to hd 128, ``csrc/flash_attention_bwd.cu`` otherwise)
+    against their plain version (``attention_flat_bwd_plain``) on the
+    card, within ``ATTN_TOL`` x max(1, largest |plain gradient|), each
+    case on the source its dtype and head dim pick; timed at the
     trainer's shape beside SDPA's backward (its forward done before the
     timed window); two calls bit-equal; and through ``ops.flash_attention``
     under autograd on non-contiguous (B, S, H, hd) views."""
@@ -1775,6 +1796,10 @@ def phase_flash_attention_bwd(torch, np, dev):
                                          window=window)
             got = flash_attention_bwd(q, k, v, o, do, causal=causal,
                                       window=window)
+            source = flash_attention_bwd.source
+            if source != _bwd_route(torch, dt, hd):
+                raise AssertionError(f"flash_attention_bwd: {name} "
+                                     f"({dname}) ran {source}")
             again = flash_attention_bwd(q, k, v, o, do, causal=causal,
                                         window=window)
             want = _bwd_plain(q, k, v, o, do, causal, window)
@@ -1787,7 +1812,7 @@ def phase_flash_attention_bwd(torch, np, dev):
                                      f"differ at {name} ({dname})")
             del got, again, want
             if not timed:
-                edge.append({"case": name, "dtype": dname,
+                edge.append({"case": name, "dtype": dname, "source": source,
                              "max_abs_err": err, "scale": scale})
                 continue
             kern = lambda: flash_attention_bwd(q, k, v, o, do, causal=causal,
@@ -1808,9 +1833,9 @@ def phase_flash_attention_bwd(torch, np, dev):
             flops = 10 * hd * b * h * pairs
             bound, by = attn_bound_ms(n_bytes, flops, dname)
             main.append({
-                "case": name, "dtype": dname, "B": b, "H": h, "Hkv": hkv,
-                "S": sq, "hd": hd, "max_abs_err": err, "scale": scale,
-                "bit_equal": bit_equal,
+                "case": name, "dtype": dname, "source": source, "B": b,
+                "H": h, "Hkv": hkv, "S": sq, "hd": hd, "max_abs_err": err,
+                "scale": scale, "bit_equal": bit_equal,
                 **_timings(torch, kern, plain, FLASH_BWD_KERNELS, 10),
                 **_library(torch, lib, 10),
                 "library": "SDPA backward (torch.autograd.grad of "
@@ -1829,6 +1854,10 @@ def phase_flash_attention_bwd(torch, np, dev):
         do = torch.randn(b, s, h, hd, generator=g, device=dev).to(dt)
         o = ops.flash_attention(q, k, v, causal=True, window=40)
         (gx,) = torch.autograd.grad(o, (x,), do)
+        source = flash_attention_bwd.source
+        if source != _bwd_route(torch, dt, hd):
+            raise AssertionError(f"flash_attention_bwd: strided ({dt}) ran "
+                                 f"{source}")
         want = _bwd_plain(q.detach(), k.detach(), v.detach(), o.detach(),
                           do, True, 40)
         torch.cuda.synchronize()
@@ -1836,7 +1865,7 @@ def phase_flash_attention_bwd(torch, np, dev):
         _hold("flash_attention_bwd", err, _dname(torch, dt), "strided",
               scale)
         strided.append({"view": "fused", "dtype": _dname(torch, dt),
-                        "contiguous": q.is_contiguous(),
+                        "source": source, "contiguous": q.is_contiguous(),
                         "max_abs_err": err})
     emit("flash_attention_bwd", tolerance=ATTN_TOL,
          tolerance_relative_to="max(1, largest |plain gradient|)",
@@ -2169,7 +2198,7 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:91"),
             ("flash_attention_bwd", fb,
-             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
              "gradient of src/repro/kernels/flash_attention.py:91 (the JAX "
              "package differentiates its jnp attention; no Pallas kernel)"),
             ("decode_attention", da,

@@ -30,8 +30,9 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("minskew", "hub_route", "flash_attention", "flash_attention_sm90",
-           "flash_attention_bwd", "decode_attention", "rglru_scan",
-           "mlstm_kernel", "mlstm_kernel_sm90", "launch_floor")
+           "flash_attention_bwd", "flash_attention_bwd_sm90",
+           "decode_attention", "rglru_scan", "mlstm_kernel",
+           "mlstm_kernel_sm90", "launch_floor")
 
 
 class KernelArgumentError(ValueError):

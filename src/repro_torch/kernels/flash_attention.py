@@ -20,11 +20,21 @@ pair and head).  Two kernels, split by dtype:
   transposes for it), which keeps the float32 arithmetic of the parity
   runs (tensor-core TF32 would change it).
 
-The gradient: ``csrc/flash_attention_bwd.cu`` (two CUDA-core kernels,
-float32 FMAs, bfloat16 or float32 tensors; see its head comment), bound
-through :class:`FlashAttention`, a ``torch.autograd.Function`` whose
-backward calls :func:`flash_attention_bwd`.  The (B, S, H, hd) entry
-point goes through it when grad mode is on and an input requires grad;
+The gradient, bound through :class:`FlashAttention`, a
+``torch.autograd.Function`` whose backward calls
+:func:`flash_attention_bwd`; two sources, chosen by dtype and head dim
+only (:func:`uses_sm90_bwd`; see each source's head comment):
+
+- bfloat16 with hd a multiple of 8 up to ``SM90_BWD_MAX_HD`` (128):
+  ``csrc/flash_attention_bwd_sm90.cu``, every product on the tensor cores
+  (``wgmma``) with its tiles loaded by TMA through the tensors' strides;
+- float32, and bfloat16 above hd 128: ``csrc/flash_attention_bwd.cu``,
+  float32 FMAs on the CUDA cores.
+
+Each is two deterministic kernels (dq, then dk and dv), no atomics.
+``flash_attention_bwd.source`` names the source of the last call that
+launched one.  The (B, S, H, hd) entry point goes through it when grad
+mode is on and an input requires grad;
 otherwise (serving, under ``torch.inference_mode``) nothing is saved and
 the launches are the forward's alone.  The flat entry point has no
 gradient and raises on a CUDA tensor under grad rather than detach.
@@ -35,7 +45,8 @@ On a CPU tensor the wrappers compute the plain versions
 tensor they launch a kernel or raise.  Both paths check dtypes and
 shapes first.  ``flash_attention_flat.launches`` counts the launches of
 either forward kernel from either entry point,
-``flash_attention_bwd.launches`` the calls that launched the backward.
+``flash_attention_bwd.launches`` the calls that launched either
+backward.
 """
 from __future__ import annotations
 
@@ -55,8 +66,10 @@ _L = ctypes.c_longlong
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HD = 256
 BQ = 64                       # query rows per block (both kernels)
+BWD_SM90_ROWS = 128           # query rows a block of the bf16 backward's dq
 MAX_GRID_YZ = 65535
-ERR_ENCODE = 20000            # csrc/flash_attention_sm90.cu: + a CUresult
+ERR_ENCODE = 20000            # csrc/flash_attention_sm90*.cu: + a CUresult
+SM90_BWD_MAX_HD = 128         # csrc/flash_attention_bwd_sm90.cu
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,6 +100,32 @@ def _lib_bwd():
                    _I, _P]
     fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd_sm90():
+    """The bfloat16 tensor-core backward's launcher, set up once; checks
+    that the source's block of query rows is the scratch's unit."""
+    lib = _build.load("flash_attention_bwd_sm90")
+    lib.flash_attention_bwd_sm90_rows.restype = _I
+    rows = lib.flash_attention_bwd_sm90_rows()
+    if rows != BWD_SM90_ROWS:
+        raise RuntimeError(f"csrc/flash_attention_bwd_sm90.cu covers {rows} "
+                           f"query rows a block, the wrapper expects "
+                           f"{BWD_SM90_ROWS}")
+    fn = lib.flash_attention_bwd_sm90_launch
+    fn.argtypes = [*([_P] * 10), *([_L] * 24), *([_I] * 9), ctypes.c_double,
+                   _P]
+    fn.restype = _I
+    return fn
+
+
+def uses_sm90_bwd(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a CUDA call at this dtype and head dim runs
+    ``csrc/flash_attention_bwd_sm90.cu`` (else
+    ``csrc/flash_attention_bwd.cu``)."""
+    return (dtype == torch.bfloat16 and hd % 8 == 0
+            and 8 <= hd <= SM90_BWD_MAX_HD)
 
 
 def _grad_wanted(*ts) -> bool:
@@ -296,9 +335,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group; Sk = 0 gives dq = 0.
 
     On CPU tensors: :func:`repro_torch.kernels.ref.attention_flat_bwd_plain`
-    on flat copies.  On CUDA tensors: ``csrc/flash_attention_bwd.cu``
-    through the tensors' strides (a tensor whose innermost stride is not 1
-    is first copied), or raise."""
+    on flat copies.  On CUDA tensors: ``csrc/flash_attention_bwd_sm90.cu``
+    where :func:`uses_sm90_bwd` says so, through the tensors' strides (a
+    tensor TMA cannot read in place is first copied, as the forward
+    does), else ``csrc/flash_attention_bwd.cu`` (a tensor whose innermost
+    stride is not 1 is first copied); or raise."""
     _check_bshd(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -320,13 +361,59 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"flash_attention_bwd: B={b}, H={h} exceed the "
                          f"launch grid")
-    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
-                      for t in (q, k, v, o, do))
     dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, hkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if b == 0:
         return dq, dk, dv
+    if uses_sm90_bwd(q.dtype, hd):
+        source = "flash_attention_bwd_sm90.cu"
+        launched = _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window)
+    else:
+        source = "flash_attention_bwd.cu"
+        launched = _bwd_cuda_cores(q, k, v, o, do, dq, dk, dv, causal,
+                                   window)
+    if launched:
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.source = source
+    return dq, dk, dv
+
+
+def _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window) -> bool:
+    """``csrc/flash_attention_bwd_sm90.cu`` into dq, dk, dv (bf16, hd a
+    multiple of 8 up to 128); False where there was nothing to launch."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if sq == 0 and sk == 0:
+        return False
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    sq_pad = -(-sq // BWD_SM90_ROWS) * BWD_SM90_ROWS
+    lse = torch.empty((b, h, sq_pad), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    strides = [st for t in (q, k, v, o, do, dq, dk, dv)
+               for st in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib_bwd_sm90()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), *strides, b, h, hkv, sq, sq_pad,
+            sk, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        what = (f"tensor map refused, CUresult {err - ERR_ENCODE}"
+                if err >= ERR_ENCODE else f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed "
+                           f"(flash_attention_bwd_sm90.cu): {what}")
+    return True
+
+
+def _bwd_cuda_cores(q, k, v, o, do, dq, dk, dv, causal, window) -> bool:
+    """``csrc/flash_attention_bwd.cu`` into contiguous dq, dk, dv (either
+    dtype, any head dim the forward takes)."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
+                      for t in (q, k, v, o, do))
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
     strides = [st for t in (q, k, v, o, do) for st in t.stride()[:3]]
@@ -340,9 +427,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention_bwd kernel launch failed: CUDA error {err}")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
+            f"flash_attention_bwd kernel launch failed "
+            f"(flash_attention_bwd.cu): CUDA error {err}")
+    return True
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.source = None

@@ -230,11 +230,63 @@ def test_flash_bwd_kernel_vs_plain(dev, dtype, b, h, hkv, sq, sk, hd,
     got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
     again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
     assert flash_attention_bwd.launches == before + 2
+    assert flash_attention_bwd.source == _bwd_source(dtype, hd)
     for a, c, w in zip(got, again, _flash_bwd_plain(q, k, v, o, do, causal,
                                                     window)):
         assert a.shape == w.shape and torch.equal(a, c)
         if w.numel():
             _close(a, w, dtype)
+
+
+def _bwd_source(dtype, hd):
+    """The source the backward's route table picks: bf16 up to hd 128 on
+    the tensor cores, the rest on the CUDA cores."""
+    if dtype == torch.bfloat16 and hd <= 128:
+        return "flash_attention_bwd_sm90.cu"
+    return "flash_attention_bwd.cu"
+
+
+# (B, H, Hkv, Sq, Sk, hd, causal, window) of the bf16 tensor-core backward:
+# head dims 8, 24, 40, 64, 96, 128 (TMA pads them to 64 or 128); GQA ratios
+# 1, 4 and 8; Sq and Sk not multiples of 64 or 128; Sq < Sk under the
+# causal mask; windows 5 and 40; cross attention; Sk = 0
+FLASH_BWD_SM90 = [(2, 4, 4, 100, 100, 8, True, 0),
+                  (1, 8, 2, 130, 130, 24, True, 0),
+                  (1, 8, 1, 70, 70, 40, False, 0),
+                  (2, 8, 8, 200, 200, 64, True, 0),
+                  (1, 8, 2, 190, 190, 96, True, 0),
+                  (1, 16, 2, 257, 257, 128, True, 0),
+                  (1, 4, 1, 50, 300, 128, True, 0),
+                  (1, 8, 2, 200, 200, 64, True, 5),
+                  (2, 4, 1, 300, 300, 96, True, 40),
+                  (1, 4, 2, 65, 200, 64, False, 0),
+                  (1, 8, 2, 129, 129, 128, True, 40),
+                  (2, 4, 2, 30, 0, 64, True, 0)]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal,window", FLASH_BWD_SM90)
+def test_flash_bwd_sm90_vs_plain(dev, b, h, hkv, sq, sk, hd, causal,
+                                 window):
+    """The bf16 tensor-core backward against ``attention_flat_bwd_plain``
+    (2e-2 relative to max(1, largest |plain gradient|)), one launch a
+    call, two calls bit-equal, and the source that ran."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bshd,
+                                                     flash_attention_bwd)
+    q, k, v, do = _flash_bwd_case(dev, torch.bfloat16, b, h, hkv, sq, sk,
+                                  hd, seed=9)
+    with torch.no_grad():
+        o = flash_attention_bshd(q, k, v, causal=causal, window=window)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.source == "flash_attention_bwd_sm90.cu"
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    assert flash_attention_bwd.launches == before + 2
+    for a, c, w in zip(got, again, _flash_bwd_plain(q, k, v, o, do, causal,
+                                                    window)):
+        assert a.shape == w.shape and torch.equal(a, c)
+        if w.numel():
+            _close(a, w, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -256,6 +308,7 @@ def test_flash_autograd_on_strided_views(dev, dtype):
     (gx,) = torch.autograd.grad(o, (x,), do)
     assert flash_attention_flat.launches == fwd + 1
     assert flash_attention_bwd.launches == bwd + 1
+    assert flash_attention_bwd.source == _bwd_source(dtype, hd)
     want = _flash_bwd_plain(q.detach(), k.detach(), v.detach(), o.detach(),
                             do, True, 40)
     _close(gx, torch.cat(want, dim=2), dtype)

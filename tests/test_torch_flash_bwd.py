@@ -16,6 +16,15 @@ Inputs from numpy with a seed, float32.  Tolerance: 1e-5 x max(1,
 largest |gradient|): the same float32 functions with sums in another
 order (the plain backward uses the forward's output in D = dO . o,
 autograd and JAX differentiate through the softmax).
+
+The bfloat16 tensor-core backward (``csrc/flash_attention_bwd_sm90.cu``)
+runs only on the card; here its route table (``uses_sm90_bwd``: dtype
+and head dim alone) and its arithmetic: :func:`_sm90_emulation` rebuilds
+the kernel's roundings in plain torch (bf16 inputs, float32 sums, lse by
+the online max and sum over 64-key tiles in base 2, P and dS rounded to
+bf16 before the three accumulating products) and is held to the plain
+version and to ``jax.grad`` within the card's bf16 tolerance, 2e-2 x
+max(1, largest |gradient|) (``chip_smoke.py``'s ``ATTN_TOL``).
 """
 import math
 
@@ -26,9 +35,11 @@ import pytest
 import torch
 
 from repro.models.attention import multi_head_attention as jattention
-from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (FlashAttention,
-                                                 flash_attention_bwd)
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.flash_attention import (BWD_SM90_ROWS,
+                                                 FlashAttention,
+                                                 flash_attention_bwd,
+                                                 uses_sm90_bwd)
 from repro_torch.kernels.ref import (attention_flat_bwd_plain,
                                      attention_flat_plain)
 
@@ -169,3 +180,166 @@ def test_function_in_a_loss_matches_jax():
     want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
     _close(got.numpy(), want)
     assert math.isfinite(float(loss))
+
+
+# -- the bf16 tensor-core backward: route and arithmetic ---------------------
+
+BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 8, True), (torch.bfloat16, 24, True),
+    (torch.bfloat16, 40, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 96, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 136, False), (torch.bfloat16, 192, False),
+    (torch.bfloat16, 256, False), (torch.bfloat16, 12, False),
+    (torch.float32, 64, False), (torch.float32, 128, False),
+    (torch.float32, 256, False)])
+def test_sm90_backward_route_table(dtype, hd, want):
+    """bf16 at hd a multiple of 8 up to 128 takes the tensor-core kernel;
+    float32 (the parity runs) and bf16 above 128 the CUDA-core one."""
+    assert uses_sm90_bwd(dtype, hd) is want
+
+
+def test_sm90_backward_is_built_and_sized():
+    """The source is in the build list, and its block of query rows (the
+    unit of the lse and D scratch) is the wrapper's."""
+    assert "flash_attention_bwd_sm90" in _build.SOURCES
+    src = (_build.CSRC / "flash_attention_bwd_sm90.cu").read_text()
+    defs = dict(line.split()[1:3] for line in src.splitlines()
+                if line.startswith("#define ") and len(line.split()) >= 3)
+    assert int(defs["NC"]) * int(defs["BT"]) == BWD_SM90_ROWS
+    assert "wgmma" in src and "tma_load4" in src
+    assert not any(op in src for op in ("atomicAdd", "atom.", "red."))
+
+
+def _sm90_emulation(q, k, v, o, do, causal, window, tile=64):
+    """``flash_attention_bwd_sm90.cu``'s arithmetic on flat (BH, S, hd)
+    bf16 tensors, in float32: S and dP from the bf16 inputs; lse (base 2,
+    of S scale log2 e) by the online max and sum over key tiles of
+    ``tile``, NO_LSE where a row sees no key; P = 2^(S scale log2 e -
+    lse); D from bf16 o and dO; P and dS rounded to bf16 before dV, dQ
+    and dK; outputs rounded to bf16."""
+    bh, sq, hd = q.shape
+    bhkv, sk, _ = k.shape
+    qpk = bh // bhkv
+    scale = 1.0 / math.sqrt(hd)
+    sl2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(qpk, dim=0)
+    vf = v.float().repeat_interleave(qpk, dim=0)
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.einsum("bqd,bkd->bqk", qf, kf)
+    x = torch.where(mask[None], s * sl2, torch.tensor(-1e30))
+    m = torch.full((bh, sq), -1e30)
+    l = torch.zeros((bh, sq))
+    for k0 in range(0, sk, tile):
+        xt, mt = x[:, :, k0:k0 + tile], mask[None, :, k0:k0 + tile]
+        mn = torch.maximum(m, xt.max(dim=-1).values)
+        pt = torch.where(mt, torch.exp2(xt - mn[..., None]), 0.0)
+        l = l * torch.exp2(m - mn) + pt.sum(dim=-1)
+        m = mn
+    lse = torch.where(l > 0, m + torch.log2(l), torch.tensor(1e30))
+    p = torch.where(mask[None], torch.exp2(s * sl2 - lse[..., None]), 0.0)
+    dsum = (dof * of).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    ds = (p * (dp - dsum)).bfloat16().float()
+    pb = p.bfloat16().float()
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dv = torch.einsum("bqk,bqd->bkd", pb, dof)
+    dk = dk.view(bhkv, qpk, sk, hd).sum(dim=1)
+    dv = dv.view(bhkv, qpk, sk, hd).sum(dim=1)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+#: (B, H, Hkv, Sq, Sk, hd, causal, window): a small-S version of the
+#: trainer's shape (8/2 heads, hd 128), MQA at hd 64 with Sq not a
+#: multiple of a tile, GQA ratio 8, head dims 24, 40, 96 and 8, windows
+#: 5 and 40, fewer queries than keys under the causal mask, cross
+#: attention
+EMULATED = [(1, 8, 2, 256, 256, 128, True, 0),
+            (1, 4, 1, 200, 200, 64, True, 0),
+            (1, 8, 1, 130, 130, 96, True, 40),
+            (2, 4, 4, 96, 96, 24, True, 5),
+            (1, 8, 2, 50, 130, 40, True, 0),
+            (1, 2, 2, 64, 100, 8, False, 0)]
+
+
+def _bf16_inputs(b, h, hkv, sq, sk, hd, seed):
+    """Numpy inputs rounded to bf16, and the forward's bf16 output."""
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _inputs(b, h, hkv, sq, sk, hd, seed))
+    o = _bshd(attention_flat_plain(_flat(q), _flat(k), _flat(v),
+                                   causal=True, window=0), b)
+    return q, k, v, o, do
+
+
+def _close_bf16(got, want):
+    got, want = got.float().numpy(), want.float().numpy()
+    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
+    assert float(np.abs(got - want).max(initial=0.0)) <= BF16_TOL * scale
+
+
+@pytest.mark.parametrize("shape", EMULATED)
+def test_sm90_roundings_within_tolerance_of_plain(shape):
+    """The kernel's bf16 P and dS against ``attention_flat_bwd_plain`` on
+    the same bf16 inputs (the comparison chip_smoke makes on the card)."""
+    b, h, hkv, sq, sk, hd, causal, window = shape
+    q, k, v, _, do = _bf16_inputs(b, h, hkv, sq, sk, hd, seed=7)
+    o = _bshd(attention_flat_plain(_flat(q), _flat(k), _flat(v),
+                                   causal=causal, window=window), b)
+    args = [_flat(t) for t in (q, k, v, o, do)]
+    got = _sm90_emulation(*args, causal, window)
+    want = attention_flat_bwd_plain(*args, causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close_bf16(g, w)
+
+
+@pytest.mark.parametrize("shape", EMULATED)
+def test_sm90_roundings_within_tolerance_of_jax(shape):
+    """The same emulation against ``jax.grad`` of the JAX package's
+    attention in float32 on the bf16 inputs' values."""
+    b, h, hkv, sq, sk, hd, causal, window = shape
+    q, k, v, _, do = _bf16_inputs(b, h, hkv, sq, sk, hd, seed=8)
+    o = _bshd(attention_flat_plain(_flat(q), _flat(k), _flat(v),
+                                   causal=causal, window=window), b)
+    got = _sm90_emulation(*(_flat(t) for t in (q, k, v, o, do)), causal,
+                          window)
+    qn, kn, vn, don = (t.float().numpy() for t in (q, k, v, do))
+
+    def loss(q, k, v):
+        out = jattention(q, k, v, causal=causal, window=window)
+        return jnp.sum(out * don)
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (qn, kn, vn)))
+    for g, w in zip(got, want):
+        _close_bf16(_bshd(g, b), torch.from_numpy(np.asarray(w)))
+
+
+def test_sm90_emulation_sk_zero_and_empty_rows():
+    """Sk = 0 gives dq = 0; under a window wider than the rows, a query
+    row past every key of a causal Sq > Sk call still sees keys, and the
+    NO_LSE trap keeps a masked row's P at 0 (no NaN)."""
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _inputs(1, 4, 2, 20, 0, 16))
+    o = torch.zeros_like(q)
+    dq, dk, dv = _sm90_emulation(*(_flat(t) for t in (q, k, v, o, do)),
+                                 True, 0)
+    assert not dq.float().abs().max() and dk.numel() == dv.numel() == 0
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _inputs(1, 2, 1, 40, 40, 16, seed=4))
+    o = _bshd(attention_flat_plain(_flat(q), _flat(k), _flat(v),
+                                   causal=True, window=3), 1)
+    args = [_flat(t) for t in (q, k, v, o, do)]
+    got = _sm90_emulation(*args, True, 3)
+    want = attention_flat_bwd_plain(*args, causal=True, window=3)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        _close_bf16(g, w)
