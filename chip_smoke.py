@@ -35,12 +35,12 @@ One JSON line per phase:
 8. check_interval — the round loop of the main path and of the sweep
    timed with the stop condition read back every 1, 4 and 16 rounds;
 9. campaign_main — a fault campaign over the main path
-   (``Campaign(engine="auto")``): one straggler chip (3x) in each of the
-   16 pods, alone or four pods at once, 32 points; the baseline on the
-   reference engine, then every point through the sweep fast path on the
-   card (both engine kernels launched), every swept lane's report
-   (vtimes included) and the campaign's report equal to the same
-   campaign's on the CPU;
+   (``Campaign(engine="auto")``): one straggler chip (3x) in every
+   fourth pod of the 16, alone or four pods at once, 8 points; the
+   baseline on the reference engine, then every point through the
+   sweep fast path on the card (both engine kernels launched), every
+   swept lane's report (vtimes included) and the campaign's report
+   equal to the same campaign's on the CPU;
 10. campaign — the registry's ``rack_ring@v1`` with its grid: the
    sweepable points on the card, the clock-skew points on the reference
    engine ("mixed"), the JAX package's histogram, the 16 swept lanes'
@@ -52,11 +52,15 @@ One JSON line per phase:
    prefill shape (B=4, S=1024, H=32, Hkv=8, hd=128, causal), at S=4096
    and at the edge shapes of tests/test_kernels.py, bfloat16 and
    float32, timed beside ``scaled_dot_product_attention`` (with a
-   boolean band mask where a window applies), and at recurrentgemma_9b's
-   prefill shape (B=4, S=3,072, H=16, Hkv=1, hd=256, window 2,048);
-   untimed at hd 8, 24 and 40, one query row, Sq < Sk under the causal
-   mask and a window narrower than a key tile, and through
-   ``ops.flash_attention`` on non-contiguous (B, S, H, hd) views;
+   boolean band mask where a window applies), at recurrentgemma_9b's
+   prefill shape (B=4, S=3,072, H=16, Hkv=1, hd=256, window 2,048) and
+   at seamless_m4t_medium's three (B=4, 16/16 heads, hd 64: the encoder's
+   256 frames, non-causal; the cross-attention's 1,024 queries against
+   256 frames; the decoder's 1,024 causal); untimed at olmoe_1b_7b's
+   prefill (16/16 heads, hd 128), at hd 8, 24 and 40, one query row,
+   Sq < Sk under the causal mask and a window narrower than a key tile,
+   and through ``ops.flash_attention`` on non-contiguous (B, S, H, hd)
+   views;
 11b. flash_attention_bwd — the attention backward kernels vs their plain
    version (``attention_flat_bwd_plain``): bfloat16 up to hd 128 on the
    tensor cores (``csrc/flash_attention_bwd_sm90.cu``), float32 and hd
@@ -70,7 +74,10 @@ One JSON line per phase:
    views;
 12. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
    hd=128, S=1056, ragged lengths), at S=8192, at recurrentgemma's
-   ring buffer (S=2,048, MQA, hd 256) and the edge shapes: lengths on
+   ring buffer (S=2,048, MQA, hd 256), at seamless_m4t_medium's self
+   cache (S=1,056, 16/16 heads, hd 64, lengths 1,025-1,055) and cross
+   cache (256 frames, all valid), untimed at olmoe_1b_7b's cache (16/16
+   heads, hd 128), and the edge shapes: lengths on
    and either side of the split kernel's chunk boundaries, a length-0
    row among full rows, lengths above S, qpk = 1;
 13. rglru_scan — the chained scan kernel vs plain version at
@@ -105,6 +112,19 @@ One JSON line per phase:
    one sLSTM block with prompts of 200 tokens, which the kernel pads;
 19. live_serve — ``record_live_serve`` on the card (smoke config), its
    trace replayed bit-identically under the barrier and async engines;
+19b. serve_moe, serve_vlm, serve_encdec — the same serving phase on
+   full-width, full-depth olmoe_1b_7b (64 experts, top 8; the slots its
+   prefill drops counted), pixtral_12b (512 patch embeddings of width
+   1,024 from a seed) and seamless_m4t_medium (256 audio frames of width
+   1,024 from a seed), 4 prompts of 1,024 tokens, 32 new tokens each,
+   every kernel's launches per ``generate`` checked (flash 16, 40 and
+   36, decode 496, 1,240 and 744); each phase frees its parameters and
+   cache before the next;
+19c. serve_parity_moe, serve_parity_vlm, serve_parity_encdec — card
+   against CPU at full width, float32, 2 layers (seamless: 2 encoder and
+   2 decoder layers), 2 prompts of 128 tokens with their frontend
+   embeddings, 8 new; the MoE's dropped-slot mask of the first layer's
+   prefill equal on both sides and non-empty;
 20. train — the training path: ``Trainer`` on full-width, full-depth
    qwen3_4b in bfloat16 (remat, AdamW, global batch 4 of 1,024 tokens),
    one warm-up step and four timed ones, each with the kernel counters
@@ -550,6 +570,12 @@ def phase_hub_route(torch, np, dev, floor_ms: float):
 
 #: the main path's size: pods (one host each) x chips per pod
 MAIN_PODS, MAIN_CHIPS = 16, 1024
+#: campaign_main's targets: a chip in every fourth pod (4 of 16, 8
+#: points).  The cut from every pod (32 points) keeps the script inside
+#: its time limit with the serving phases of the MoE, VLM and
+#: encoder-decoder families: each point is a host compile of the main
+#: path (2-5 s, with the host's pace)
+CAMPAIGN_POD_STEP = 4
 
 
 def main_path_sim(scenario=None):
@@ -746,8 +772,9 @@ def timed_campaign(camp, minimize: bool = True):
 
 
 def phase_campaign_main(torch, dev):
-    """A fault campaign over the main path: one straggler chip (3x) per
-    pod, or four correlated pods, 32 points, ``engine="auto"``; every
+    """A fault campaign over the main path: one straggler chip (3x) in
+    every ``CAMPAIGN_POD_STEP``-th pod, or four correlated pods (8
+    points), ``engine="auto"``; every
     point must take the sweep fast path on the card through both engine
     kernels, every lane's report (vtimes included) must equal the CPU
     sweep's, and the campaign's report the CPU campaign's."""
@@ -756,7 +783,8 @@ def phase_campaign_main(torch, dev):
     def camp(device):
         grid = FaultGrid(
             types=("straggler",),
-            targets=tuple(f"chip{p * MAIN_CHIPS}" for p in range(MAIN_PODS)),
+            targets=tuple(f"chip{p * MAIN_CHIPS}"
+                          for p in range(0, MAIN_PODS, CAMPAIGN_POD_STEP)),
             vtimes=(0,), counts=(1, 4), knobs={"slowdown": 3.0})
         make = recording(main_path_sim)
         return make, Campaign(make, grid, seed=0, engine="auto",
@@ -909,7 +937,9 @@ FLASH_BWD_KERNELS = ("flash_bwd_sm90_q", "flash_bwd_sm90_kv", "flash_bwd_dq",
                      "flash_bwd_dkdv")
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 #: (case, B, H, Hkv, Sq, Sk, hd, causal, window, timed): the serving
-#: path's prefill shape, a longer prompt, recurrentgemma's prefill,
+#: path's prefill shape (pixtral_12b's too), a longer prompt,
+#: recurrentgemma's prefill, seamless_m4t_medium's encoder, cross- and
+#: decoder self-attention, olmoe_1b_7b's prefill (MHA, hd 128),
 #: tests/test_kernels.py's edge shapes (GQA, padded tail, window, cross
 #: attention, hd 128), head dims that are not multiples of 16 (the bf16
 #: kernel pads them to 64 in shared memory), one query row, fewer queries
@@ -918,6 +948,10 @@ FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                ("s4096", 4, 32, 8, 4096, 4096, 128, True, 0, True),
                ("rglru_prefill", 4, 16, 1, 3072, 3072, 256, True, 2048,
                 True),
+               ("encdec_enc", 4, 16, 16, 256, 256, 64, False, 0, True),
+               ("encdec_cross", 4, 16, 16, 1024, 256, 64, False, 0, True),
+               ("encdec_self", 4, 16, 16, 1024, 1024, 64, True, 0, True),
+               ("moe_prefill", 4, 16, 16, 1024, 1024, 128, True, 0, False),
                ("gqa", 1, 4, 2, 128, 128, 64, True, 0, False),
                ("padded", 1, 8, 2, 96, 96, 32, True, 0, False),
                ("window64", 1, 2, 1, 256, 256, 64, True, 64, False),
@@ -934,11 +968,17 @@ FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
 #: random, or "edges" for the split boundaries of the shape's own chunk
 #: (chunk - 1, chunk, chunk + 1, 2 chunk).  The serving path's decode
 #: shape (S = 1,024 + 32 cache positions), a long cache, recurrentgemma's
-#: ring buffer, tests/test_kernels.py's decode shapes, a length-0 row alone
-#: and among full rows, lengths above S (clamped) and qpk = 1
+#: ring buffer, seamless_m4t_medium's self and cross caches, olmoe_1b_7b's
+#: cache, tests/test_kernels.py's decode shapes, a length-0 row alone and
+#: among full rows, lengths above S (clamped) and qpk = 1
 DECODE_CASES = [("main", 4, 32, 8, 1056, 128, [1, 300, 777, 1056], True),
                 ("s8192", 4, 32, 8, 8192, 128, [1, 2048, 5000, 8192], True),
                 ("rglru_ring", 4, 16, 1, 2048, 256, [2048] * 4, True),
+                ("encdec_self", 4, 16, 16, 1056, 64,
+                 [1025, 1035, 1045, 1055], True),
+                ("encdec_cross", 4, 16, 16, 256, 64, [256] * 4, True),
+                ("moe_decode", 4, 16, 16, 1056, 128,
+                 [1025, 1035, 1045, 1055], False),
                 ("rglru_ring_partial", 4, 16, 1, 2048, 256,
                  [1, 700, 1500, 2048], False),
                 ("mha", 2, 4, 4, 256, 64, None, False),
@@ -959,11 +999,22 @@ DECODE_CASES = [("main", 4, 32, 8, 1056, 128, [1, 300, 777, 1056], True),
 SERVE = ("qwen3_4b", 4, 1024, 32)
 SERVE_RGLRU = ("recurrentgemma_9b", 4, 3072, 32)
 SERVE_XLSTM = ("xlstm_1_3b", 4, 1024, 32)
+#: olmoe's prefill routes 4,096 tokens x 8 slots into 64 experts of 640
+#: places; pixtral's prompts open with 512 patch embeddings and
+#: seamless's decoder attends to 256 audio frames (frontend_embeds)
+SERVE_MOE = ("olmoe_1b_7b", 4, 1024, 32)
+SERVE_VLM = ("pixtral_12b", 4, 1024, 32)
+SERVE_ENCDEC = ("seamless_m4t_medium", 4, 1024, 32)
 #: the parity phases: (layers, batch, prompt length, new tokens, config
 #: overrides) at the arch's full width in float32
 PARITY = (2, 2, 128, 8, {})
 PARITY_RGLRU = (3, 2, 2080, 4, {})
 PARITY_XLSTM = (2, 2, 200, 8, {"slstm_every": 2})
+#: olmoe's 256 tokens take 40 places an expert against a mean load of 32,
+#: so some expert overflows and the first layer drops slots
+PARITY_MOE = (2, 2, 128, 8, {})
+PARITY_VLM = (2, 2, 128, 8, {})
+PARITY_ENCDEC = (2, 2, 128, 8, {"n_enc_layers": 2})
 #: (B, S, W, with h0, timed): recurrentgemma's prefill shape, a long
 #: chain (64 chunks at the kernel's T_c of 256; "kernel": the plain loop
 #: over its 16,384 steps is timed once, not profiled), tests/test_kernels.py's
@@ -1396,6 +1447,42 @@ def serve_prompts(np, vocab: int, b: int, s: int, seed: int):
         np.int32)
 
 
+def frontend_embeds(np, cfg, b: int, s: int, seed: int):
+    """The frontend stub's embeddings for B prompts of S tokens, float32
+    from a seed (``None`` without a frontend): ``min(n_frontend_tokens,
+    S // 2)`` patches, or ``enc_len(S)`` audio frames, as the JAX
+    package's ``launch/shapes.py::frontend_tokens`` reckons."""
+    if not cfg.frontend:
+        return None
+    if cfg.frontend == "patch":
+        n = min(cfg.n_frontend_tokens, s // 2)
+    else:
+        from repro_torch.models.encdec import enc_len
+        n = enc_len(cfg, s)
+    return np.random.default_rng(seed).standard_normal(
+        (b, n, cfg.frontend_dim)).astype(np.float32)
+
+
+def moe_keeps(run):
+    """(``run()``, [(capacity, kept mask on the host)] of each MoE layer
+    it ran): the MoE's ``dispatch_indices`` wrapped to keep them; outside
+    the timed runs, since reading the mask waits for the card."""
+    from repro_torch.models import moe
+    inner = moe.dispatch_indices
+    kept = []
+
+    def keeping(ids, cap, n_experts):
+        idx, keep = inner(ids, cap, n_experts)
+        kept.append((cap, keep.cpu()))
+        return idx, keep
+    moe.dispatch_indices = keeping
+    try:
+        out = run()
+    finally:
+        moe.dispatch_indices = inner
+    return out, kept
+
+
 def _serving_wrappers() -> dict:
     """The model paths' kernel wrappers (serving and training), by kernel
     name."""
@@ -1422,11 +1509,20 @@ def _zero_kernel_counts():
 def expected_launches(cfg, decode_steps: int) -> dict:
     """Each model kernel's launches in one ``generate``: attention
     once per attention layer in prefill and per attention layer and
-    decode step; the recurrences once per recurrent layer in prefill
-    (decode steps them in plain tensor ops); no attention backward."""
+    decode step (the encoder-decoder: its encoder layers, and twice per
+    decoder layer, self and cross); the recurrences once per recurrent
+    layer in prefill (decode steps them in plain tensor ops); no
+    attention backward."""
     n_attn = n_rec = n_mlstm = 0
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         n_attn = cfg.n_layers
+    elif cfg.family == "encdec":
+        # prefill: the encoder's layers, the decoder's self- and
+        # cross-attention; decode: self and cross per decoder layer
+        return {"flash_attention": (cfg.n_enc_layers or cfg.n_layers)
+                + 2 * cfg.n_layers, "flash_attention_bwd": 0,
+                "decode_attention": 2 * cfg.n_layers * decode_steps,
+                "rglru_scan": 0, "mlstm_chunkwise": 0}
     elif cfg.family == "rglru":
         from repro_torch.models.rglru import layer_kinds
         n_attn = layer_kinds(cfg).count("attn")
@@ -1498,7 +1594,9 @@ def _device_ops(prof) -> int:
 def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
                 seed: int = 0):
     """A serving path at the arch's full width and depth, bfloat16:
-    ``spec`` is (arch, batch, prompt length, new tokens)."""
+    ``spec`` is (arch, batch, prompt length, new tokens); a frontend's
+    embeddings come from ``seed`` and live on the card, as the stub's
+    output would."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -1514,18 +1612,20 @@ def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
     init_s = time.perf_counter() - t0
     srv = BatchServer(cfg, params, max_new_tokens=new, device=dev)
     prompts = serve_prompts(np, cfg.vocab, batch, prompt_len, seed=4)
-    logits, _ = srv._prefill(params, torch.from_numpy(prompts).to(dev))
+    fe = frontend_embeds(np, cfg, batch, prompt_len, seed)
+    fe = None if fe is None else torch.from_numpy(fe).to(dev)
+    logits, _ = srv._prefill(params, torch.from_numpy(prompts).to(dev), fe)
     if logits.shape != (batch, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"{phase}: prefill logits "
                              f"{tuple(logits.shape)} not finite")
     del logits
-    srv.generate(prompts)                       # warm-up
+    srv.generate(prompts, fe)                   # warm-up
     torch.cuda.reset_peak_memory_stats()
     runs = []
     for _ in range(3):
         _zero_kernel_counts()
-        out = srv.generate(prompts)
+        out = srv.generate(prompts, fe)
         counts = _kernel_counts()
         st = out["stats"]
         tok = out["tokens"]
@@ -1546,10 +1646,18 @@ def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
     slstm = (slstm_share(torch, srv, params,
                          torch.from_numpy(prompts).to(dev))
              if cfg.family == "xlstm" else None)
+    drops = None
+    if cfg.n_experts:
+        _, kept = moe_keeps(lambda: srv._prefill(
+            params, torch.from_numpy(prompts).to(dev), fe))
+        drops = {"capacity": kept[0][0], "slots": int(kept[0][1].numel()),
+                 "dropped_by_layer": [int((~k).sum()) for _, k in kept]}
+        drops["dropped_share"] = (sum(drops["dropped_by_layer"])
+                                  / (drops["slots"] * len(kept)))
     # one profiled generate: each kernel's share of the device time
     _zero_kernel_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        srv.generate(prompts)
+        srv.generate(prompts, fe)
         torch.cuda.synchronize()
     gen_launched = _launched()
     by_kernel, gen_seen = _device_kernels(prof, gen_launched)
@@ -1558,7 +1666,7 @@ def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
              / total for k in gen_launched if gen_launched[k]}
     # decode steps alone, profiled: the device's idle share and where a
     # decode step's device time goes
-    _, cache = srv._prefill(params, torch.from_numpy(prompts).to(dev))
+    _, cache = srv._prefill(params, torch.from_numpy(prompts).to(dev), fe)
     tok = torch.zeros(batch, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
     n_steps = new - 1
@@ -1594,7 +1702,10 @@ def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
          decode_kernel_records_seen=dec_seen,
          decode_step_device_ms_by_kernel={
              k[:80]: us / 1e3 / n_steps for k, us in top},
-         prefill_slstm=slstm)
+         prefill_slstm=slstm, prefill_moe_drops=drops,
+         frontend_embeds=None if fe is None else list(fe.shape))
+    del srv, params, cache, logits, tok, fe, prof
+    torch.cuda.empty_cache()
     return runs[0]["launches"]
 
 
@@ -1629,8 +1740,10 @@ def slstm_share(torch, srv, params, prompts) -> dict:
 def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
                        spec=PARITY, phase: str = "serve_parity"):
     """Full width, cut depth, float32: the card (kernels) against the
-    CPU (plain versions) on the same parameters.  ``spec`` is (layers,
-    batch, prompt length, new tokens, config overrides)."""
+    CPU (plain versions) on the same parameters and frontend embeddings.
+    ``spec`` is (layers, batch, prompt length, new tokens, config
+    overrides).  A MoE's first layer must drop the same slots on both
+    sides in prefill, and some."""
     import dataclasses
 
     from repro_torch import configs
@@ -1653,12 +1766,25 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
                 for k, v in tree.items()}
     cpu = to_cpu(gpu)
     prompts = serve_prompts(np, cfg.vocab, batch, prompt_len, seed=5)
+    fe = frontend_embeds(np, cfg, batch, prompt_len, seed=6)
+    fe_c, fe_h = ((None, None) if fe is None
+                  else (torch.from_numpy(fe).to(dev), torch.from_numpy(fe)))
     card = BatchServer(cfg, gpu, max_new_tokens=new, device=dev)
     host = BatchServer(cfg, cpu, max_new_tokens=new, device="cpu")
     # logits of prefill and of every decode step, both fed the card's
     # greedy tokens
-    lc, cc = card._prefill(gpu, torch.from_numpy(prompts).to(dev))
-    lh, ch = host._prefill(cpu, torch.from_numpy(prompts))
+    ((lc, cc), (lh, ch)), kept = moe_keeps(lambda: (
+        card._prefill(gpu, torch.from_numpy(prompts).to(dev), fe_c),
+        host._prefill(cpu, torch.from_numpy(prompts), fe_h)))
+    drops = None
+    if cfg.n_experts:
+        first_c, first_h = kept[0][1], kept[cfg.n_layers][1]
+        drops = int((~first_h).sum())
+        if not torch.equal(first_c, first_h) or drops == 0:
+            raise AssertionError(f"{phase}: first layer's dropped slots "
+                                 f"{int((~first_c).sum())} on the card, "
+                                 f"{drops} on the CPU (must be equal, "
+                                 f"non-empty)")
     errs, gaps = [], []
     for step in range(new):
         lc_h = lc.cpu()
@@ -1680,16 +1806,26 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
             break
         lc, cc = card._decode(gpu, tc.to(torch.int32).to(dev), cc)
         lh, ch = host._decode(cpu, tc.to(torch.int32), ch)
-    out_c = card.generate(prompts)
-    out_h = host.generate(prompts)
+    out_c = card.generate(prompts, fe)
+    out_h = host.generate(prompts, fe)
     same = bool((out_c["tokens"] == out_h["tokens"]).all())
     if not same and not gaps:
         raise AssertionError(f"{phase}: generate tokens differ")
+    sc, sh = out_c["stats"], out_h["stats"]
+    if (sc.decode_steps, sc.tokens_out) != (sh.decode_steps, sh.tokens_out):
+        raise AssertionError(f"{phase}: decode_steps, tokens_out "
+                             f"{(sc.decode_steps, sc.tokens_out)} on the "
+                             f"card, {(sh.decode_steps, sh.tokens_out)} "
+                             f"on the CPU")
     emit(phase, arch=cfg.name, n_layers=n_layers, overrides=overrides,
          dtype="float32",
          batch=batch, prompt_len=prompt_len, new_tokens=new, tolerance=tol,
          logits_max_abs_err=errs, token_gaps_where_differ=gaps,
-         tokens_equal=same, decode_steps=out_c["stats"].decode_steps)
+         tokens_equal=same, decode_steps=sc.decode_steps,
+         tokens_out=sc.tokens_out, first_layer_prefill_dropped=drops,
+         frontend_embeds=None if fe is None else list(fe.shape))
+    del card, host, gpu, cpu, cc, ch, lc, lh
+    torch.cuda.empty_cache()
 
 
 def replayed(report) -> dict:
@@ -2150,7 +2286,7 @@ def main() -> int:
     import repro_torch.sim  # noqa: F401  (fails outside a checkout)
 
     dev = torch.device("cuda")
-    name, _ = phase_device(torch, card)
+    phase_device(torch, card)
     phase_build()
     floor = phase_launch_floor(torch, dev)
     ms = phase_minskew(torch, np, dev, floor)
@@ -2177,6 +2313,14 @@ def main() -> int:
     phase_serve_parity(torch, np, dev, SERVE_XLSTM[0], PARITY_XLSTM,
                        "serve_parity_xlstm")
     phase_live_serve(torch, dev)
+    for spec, parity, fam, seed in (
+            (SERVE_MOE, PARITY_MOE, "moe", 10),
+            (SERVE_VLM, PARITY_VLM, "vlm", 11),
+            (SERVE_ENCDEC, PARITY_ENCDEC, "encdec", 12)):
+        by_path[f"serve_{fam}"] = phase_serve(torch, np, dev, spec,
+                                              f"serve_{fam}", seed=seed)
+        phase_serve_parity(torch, np, dev, spec[0], parity,
+                           f"serve_parity_{fam}")
     by_path["train"] = phase_train(torch, np, dev)
     by_path["train_parity"] = phase_train_parity(torch, np, dev)
     phase_live_recovery(torch, dev)
@@ -2228,7 +2372,7 @@ def main() -> int:
                                "hd", "dtype", "lengths", "W", "BH")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

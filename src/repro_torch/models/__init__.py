@@ -1,1 +1,1 @@
-"""Model definitions of the port: the dense transformer family."""
+"""Model definitions of the port: every family of the JAX package."""

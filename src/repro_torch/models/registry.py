@@ -1,9 +1,10 @@
 """Family dispatch, PyTorch port of ``repro.models.registry``: every
 architecture exposes one uniform interface.
 
-The ``dense``, ``rglru`` and ``xlstm`` families are ported; ``moe``,
-``encdec`` and ``vlm`` wait for ROADMAP A11.  The sharding metadata
-(``logical_axes``, ``cache_axes``) waits for the mesh code (A12).
+Every family is ported: ``dense``, ``moe`` and ``vlm`` run the
+transformer, ``encdec`` the encoder-decoder, ``rglru`` and ``xlstm``
+their own modules.  The sharding metadata (``logical_axes``,
+``cache_axes``) waits for the mesh code (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -11,24 +12,21 @@ import torch
 
 from repro_torch.models.common import ModelConfig
 
-_ROADMAP = {"moe": "A11", "encdec": "A11", "vlm": "A11"}
-
 
 def _module(cfg: ModelConfig):
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer
         return transformer
+    if fam == "encdec":
+        from repro_torch.models import encdec
+        return encdec
     if fam == "rglru":
         from repro_torch.models import rglru
         return rglru
     if fam == "xlstm":
         from repro_torch.models import xlstm
         return xlstm
-    if fam in _ROADMAP:
-        raise NotImplementedError(
-            f"{cfg.name}: the {fam!r} family is not ported yet "
-            f"(ROADMAP {_ROADMAP[fam]})")
     raise ValueError(f"unknown family: {fam}")
 
 

@@ -1,19 +1,22 @@
-"""Dense decoder-only transformer, PyTorch port of ``repro.models.transformer``.
+"""Decoder-only transformer, PyTorch port of ``repro.models.transformer``.
 
 Covers the dense configs (qwen3-4b with QK-norm, phi3-medium-14b,
-glm4-9b, deepseek-coder-33b).  Layer: pre-RMSNorm -> GQA attention
-(RoPE, optional QK-norm, optional sliding window) -> residual ->
-pre-RMSNorm -> SwiGLU MLP -> residual.  Attention goes through the
-kernels (:mod:`repro_torch.models.attention`).
+glm4-9b, deepseek-coder-33b), the MoE configs (olmoe-1b-7b,
+moonshot-v1-16b-a3b: the SwiGLU MLP becomes
+:func:`repro_torch.models.moe.moe_ffn`) and the pixtral-12b backbone
+(the patch frontend stub: the first ``nf`` positions take the given
+patch embeddings times ``frontend_proj``).  Layer: pre-RMSNorm -> GQA
+attention (RoPE, optional QK-norm, optional sliding window) -> residual
+-> pre-RMSNorm -> SwiGLU MLP or MoE -> residual.  Attention goes through
+the kernels (:mod:`repro_torch.models.attention`).
 
-Not ported here: MoE layers (``n_experts > 0``) and multimodal frontends
-(ROADMAP A11), and the mesh options ``tp_attention`` and ``sp_decode``
+Not ported here: the mesh options ``tp_attention`` and ``sp_decode``
 (ROADMAP A12: the port's mesh is logical, over one card); each raises
 ``NotImplementedError``.
 
 Parameters keep the JAX tree, layers stacked on a leading ``L``
-dimension; the KV cache is ``{"k", "v": (L, B, max_len, Hkv, hd),
-"len": int}``.
+dimension (a MoE layer's experts under ``"moe"``, and no ``"mlp"``);
+the KV cache is ``{"k", "v": (L, B, max_len, Hkv, hd), "len": int}``.
 """
 from __future__ import annotations
 
@@ -24,18 +27,12 @@ import torch
 from repro_torch.core.engine_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import moe
 from repro_torch.models.common import ModelConfig
 
 
 def check_dense(cfg: ModelConfig) -> None:
     """Raise on what this port of the transformer does not cover."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A11)")
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            f"(ROADMAP A11)")
     if cfg.tp_attention or cfg.sp_decode:
         raise NotImplementedError(
             f"{cfg.name}: tp_attention and sp_decode are mesh options; the "
@@ -57,8 +54,11 @@ def _layer_specs(cfg: ModelConfig) -> dict:
         "wv": (d, hkv, hd),
         "wo": (h, hd, d),
         "ln2": (d,),
-        "mlp": {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)},
     }
+    if cfg.n_experts > 0:
+        p["moe"] = moe.moe_specs(cfg)
+    else:
+        p["mlp"] = {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
     if cfg.qk_norm:
         p["q_norm"] = (hd,)
         p["k_norm"] = (hd,)
@@ -66,27 +66,26 @@ def _layer_specs(cfg: ModelConfig) -> dict:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """The parameter tree with a shape tuple at every leaf (no alloc)."""
+    """The parameter tree with a shape tuple at every leaf (no alloc);
+    the MoE router is a ``common.F32`` shape."""
     check_dense(cfg)
-
-    def stack(tree):
-        return {k: stack(v) if isinstance(v, dict) else (cfg.n_layers,) + v
-                for k, v in tree.items()}
-
-    return {
+    p = {
         "embed": (cfg.vocab, cfg.d_model),
-        "layers": stack(_layer_specs(cfg)),
+        "layers": cm.stacked(cfg.n_layers, _layer_specs(cfg)),
         "final_norm": (cfg.d_model,),
         "lm_head": (cfg.d_model, cfg.vocab),
     }
+    if cfg.frontend:
+        p["frontend_proj"] = (cfg.frontend_dim, cfg.d_model)
+    return p
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, *,
          device=None) -> dict:
     """Random parameters at the config's shapes and dtype, with the JAX
     package's scales: norms 0, embeddings N(0, 0.02), projections
-    N(0, 1/fan_in).  ``generator`` must live on ``device`` (``None``
-    means CUDA and raises without it)."""
+    N(0, 1/fan_in); the MoE router float32.  ``generator`` must live
+    on ``device`` (``None`` means CUDA and raises without it)."""
     check_dense(cfg)
     dev = resolve_device(device, "the model")
     dt, n = cfg.dtype, cfg.n_layers
@@ -104,18 +103,25 @@ def init(cfg: ModelConfig, generator: torch.Generator, *,
         "wv": dense((d, hkv, hd)),
         "wo": dense((h, hd, d), in_axis=(1, 2)),
         "ln2": torch.zeros((n, d), dtype=dt, device=dev),
-        "mlp": {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
-                "w_down": dense((ff, d))},
     }
+    if cfg.n_experts > 0:
+        layers["moe"] = moe.moe_params(generator, cfg, n, device=dev)
+    else:
+        layers["mlp"] = {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
+                         "w_down": dense((ff, d))}
     if cfg.qk_norm:
         layers["q_norm"] = torch.zeros((n, hd), dtype=dt, device=dev)
         layers["k_norm"] = torch.zeros((n, hd), dtype=dt, device=dev)
-    return {
+    params = {
         "embed": cm.embed_init(generator, (cfg.vocab, d), dt, device=dev),
         "layers": layers,
         "final_norm": torch.zeros((d,), dtype=dt, device=dev),
         "lm_head": cm.dense_init(generator, (d, cfg.vocab), dt, device=dev),
     }
+    if cfg.frontend:
+        params["frontend_proj"] = cm.dense_init(
+            generator, (cfg.frontend_dim, d), dt, device=dev)
+    return params
 
 
 def layer(params: dict, i: int) -> dict:
@@ -150,9 +156,28 @@ def _out_proj(lp: dict, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     return x + o.reshape(b, s, h * hd) @ lp["wo"].reshape(h * hd, -1)
 
 
-def _ffn_block(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+               aux: bool = False):
+    """Returns (x_out, the MoE aux loss: ``None`` unless ``aux`` and the
+    layer is a MoE)."""
     h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + cm.mlp_forward(lp["mlp"], h)
+    if cfg.n_experts > 0:
+        y, a = moe.moe_ffn(cfg, lp["moe"], h, aux=aux)
+        return x + y, a
+    return x + cm.mlp_forward(lp["mlp"], h), None
+
+
+def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings; with a frontend, the first ``nf`` positions are
+    the frontend embeddings (B, nf, frontend_dim), cast to the model's
+    dtype, times ``frontend_proj``."""
+    x = params["embed"][tokens]
+    if cfg.frontend and frontend_embeds is not None:
+        fe = frontend_embeds.to(cfg.dtype) @ params["frontend_proj"]
+        x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -161,17 +186,18 @@ def _ffn_block(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-           lp: dict) -> torch.Tensor:
-    """One decoder layer of the scoring / training forward."""
+           lp: dict, aux: bool = False):
+    """One decoder layer of the scoring / training forward -> (x, aux
+    loss or ``None``)."""
     q, k, v = _qkv(cfg, lp, x, positions)
     o = attn.multi_head_attention(q, k, v, causal=True, window=cfg.window)
-    return _ffn_block(cfg, lp, _out_proj(lp, x, o))
+    return _ffn_block(cfg, lp, _out_proj(lp, x, o), aux)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend_embeds=None, return_aux: bool = False):
-    """tokens (B, S) -> logits (B, S, V) float32 [+ aux loss, 0 for a
-    dense model].
+    """tokens (B, S) -> logits (B, S, V) float32 [+ the MoE aux loss, its
+    mean over layers; 0 for a dense model].
 
     Trainable: under grad, ``cfg.remat`` recomputes each layer in the
     backward (:func:`common.maybe_remat`, the JAX package's
@@ -179,14 +205,17 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``unbind`` of each stacked leaf (:func:`common.unstack`), whose
     backward stacks the layers' gradients once."""
     check_dense(cfg)
-    x = params["embed"][tokens]
+    x = embed_tokens(cfg, params, tokens, frontend_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)
     block = cm.maybe_remat(cfg, _block)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in cm.unstack(params["layers"], cfg.n_layers):
-        x = block(cfg, x, positions, lp)
+        x, a = block(cfg, x, positions, lp, return_aux)
+        if a is not None:
+            aux = aux + a
     logits = cm.final_logits(cfg, params, x)
     if return_aux:
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux / cfg.n_layers
     return logits
 
 
@@ -205,7 +234,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     filled layer by layer; positions from S on are zero until decode
     writes them."""
     check_dense(cfg)
-    x = params["embed"][tokens]
+    x = embed_tokens(cfg, params, tokens, frontend_embeds)
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)
     cap = max(max_len if max_len is not None else s + 64, s)
@@ -219,7 +248,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         vs[i, :, :s] = v
         o = attn.multi_head_attention(q, k, v, causal=True,
                                       window=cfg.window)
-        x = _ffn_block(cfg, lp, _out_proj(lp, x, o))
+        x, _ = _ffn_block(cfg, lp, _out_proj(lp, x, o))
     logits = cm.final_logits(cfg, params, x[:, -1])
     return logits, {"k": ks, "v": vs, "len": s}
 
@@ -248,7 +277,7 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
         ks[i, :, n] = k[:, 0]
         vs[i, :, n] = v[:, 0]
         o = attn.decode_attention(q, ks[i], vs[i], lengths)
-        x = _ffn_block(cfg, lp, _out_proj(lp, x, o))
+        x, _ = _ffn_block(cfg, lp, _out_proj(lp, x, o))
     logits = cm.final_logits(cfg, params, x[:, 0])
     return logits, {"k": ks, "v": vs, "len": n + 1}
 

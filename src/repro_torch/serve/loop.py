@@ -71,7 +71,8 @@ class BatchServer:
 
     def generate(self, prompts, frontend_embeds=None) -> Dict:
         """prompts (B, S) int -> dict with tokens (B, <=max_new) numpy
-        int32 + stats.
+        int32 + stats.  ``frontend_embeds`` (patch or frame embeddings,
+        numpy or a tensor) go to the server's device with the prompts.
 
         With an ``eos_id``, a lane that has emitted it is finished: its
         later positions hold ``pad_id`` (a finished lane's argmax is KV
@@ -82,6 +83,10 @@ class BatchServer:
         """
         prompts = torch.as_tensor(prompts, dtype=torch.int32).to(
             self.device)
+        if frontend_embeds is not None:
+            # the model casts them to its dtype, as the JAX model does
+            frontend_embeds = torch.as_tensor(frontend_embeds).to(
+                self.device)
         b = prompts.shape[0]
         sync(self.device)
         t0 = time.perf_counter()

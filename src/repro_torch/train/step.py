@@ -28,9 +28,10 @@ from repro_torch.optim.adamw import tree_leaves, tree_map
 
 
 def _loss_fn(cfg: ModelConfig, params, tokens, labels, frontend_embeds):
-    if cfg.n_experts > 0:
+    if cfg.family in ("moe", "vlm", "encdec"):
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A11)")
+            f"{cfg.name}: training the {cfg.family!r} family is not ported "
+            f"yet (ROADMAP A11.2); it serves")
     logits = registry.forward(cfg, params, tokens,
                               frontend_embeds=frontend_embeds)
     ce = softmax_cross_entropy(logits[:, :-1], labels[:, 1:])

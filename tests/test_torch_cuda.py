@@ -128,10 +128,63 @@ def test_recurrent_models_card_vs_cpu(dev, arch):
         _close(lg.cpu(), lc)
 
 
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "pixtral_12b",
+                                  "seamless_m4t_medium"])
+def test_serving_families_card_vs_cpu(dev, arch):
+    """Smoke config in float32 with its frontend embeddings: prefill, then
+    decode, on the card (kernels) and on the CPU (plain versions); the
+    MoE's routing is the same on both sides, so is its dropped-slot mask
+    in the first layer's prefill."""
+    from repro_torch import configs
+    from repro_torch.models import moe, registry
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32)
+    params = registry.init(cfg, torch.Generator(device=dev).manual_seed(2),
+                           device=dev)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+    cpu = to_cpu(params)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 100)).astype(
+        np.int32))
+    fe = None
+    if cfg.frontend:
+        nf = cfg.n_frontend_tokens if cfg.frontend == "patch" else 64
+        fe = torch.from_numpy(rng.standard_normal(
+            (2, nf, cfg.frontend_dim)).astype(np.float32))
+    keeps = []
+    inner = moe.dispatch_indices
+
+    def record(ids, cap, n):
+        idx, keep = inner(ids, cap, n)
+        keeps.append(keep.cpu())
+        return idx, keep
+    moe.dispatch_indices = record
+    try:
+        lg, cg = registry.prefill(cfg, params, tokens.to(dev),
+                                  frontend_embeds=None if fe is None
+                                  else fe.to(dev))
+        lc, cc = registry.prefill(cfg, cpu, tokens, frontend_embeds=fe)
+    finally:
+        moe.dispatch_indices = inner
+    _close(lg.cpu(), lc)
+    if cfg.n_experts:
+        half = len(keeps) // 2
+        assert torch.equal(keeps[0], keeps[half])
+    for _ in range(3):
+        tok = lc.argmax(-1).to(torch.int32)
+        lg, cg = registry.decode_step(cfg, params, tok.to(dev), cg)
+        lc, cc = registry.decode_step(cfg, cpu, tok, cc)
+        _close(lg.cpu(), lc)
+
+
 # (B, H, Hkv, Sq, Sk, hd, causal, window): head dims that are not multiples
 # of 16 (the bf16 kernel pads them to 64), one query row, fewer queries
 # than keys under the causal mask, a window narrower than a key tile,
-# cross attention, MQA at hd 256 with a window
+# cross attention, MQA at hd 256 with a window; seamless_m4t_medium's
+# encoder (non-causal), its cross-attention (1,024 queries against 256
+# frames) and its decoder's self-attention (MHA, hd 64)
 FLASH_EDGE = [(2, 4, 2, 100, 100, 8, True, 0),
               (1, 4, 1, 130, 130, 24, True, 0),
               (1, 4, 2, 70, 70, 40, False, 0),
@@ -140,7 +193,10 @@ FLASH_EDGE = [(2, 4, 2, 100, 100, 8, True, 0),
               (1, 4, 2, 50, 300, 128, True, 0),
               (1, 4, 2, 200, 200, 64, True, 5),
               (1, 2, 2, 64, 192, 32, False, 0),
-              (1, 4, 1, 300, 300, 256, True, 100)]
+              (1, 4, 1, 300, 300, 256, True, 100),
+              (4, 16, 16, 256, 256, 64, False, 0),
+              (4, 16, 16, 1024, 256, 64, False, 0),
+              (4, 16, 16, 1024, 1024, 64, True, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -385,13 +441,17 @@ def test_train_steps_card_vs_cpu(dev):
 
 # (B, H, Hkv, S, hd, lengths): "edges" is chunk - 1, chunk, chunk + 1 and
 # 2 chunk for the shape's own split chunk; a length-0 row among full rows,
-# lengths above S (clamped), qpk = 1, the MQA ring buffer
+# lengths above S (clamped), qpk = 1, the MQA ring buffer;
+# seamless_m4t_medium's self cache (MHA, hd 64) and its cross cache, every
+# frame valid
 DECODE_EDGE = [(4, 32, 8, 1056, 128, "edges"),
                (4, 16, 1, 2048, 256, "edges"),
                (4, 32, 8, 1056, 128, [1056, 0, 1056, 1056]),
                (3, 8, 2, 300, 64, [301, 5000, 300]),
                (2, 8, 8, 300, 128, [299, 3]),
-               (3, 4, 2, 100, 32, [0, 0, 0])]
+               (3, 4, 2, 100, 32, [0, 0, 0]),
+               (4, 16, 16, 1056, 64, [1025, 1035, 1045, 1055]),
+               (4, 16, 16, 256, 64, [256] * 4)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

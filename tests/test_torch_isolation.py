@@ -38,7 +38,8 @@ def test_port_files_exist():
                 "kernels/flash_attention.py", "kernels/decode_attention.py",
                 "kernels/rglru_scan.py", "kernels/mlstm_kernel.py",
                 "models/transformer.py", "models/rglru.py",
-                "models/xlstm.py", "serve/loop.py", "sim/live.py",
+                "models/xlstm.py", "models/moe.py", "models/encdec.py",
+                "serve/loop.py", "sim/live.py",
                 "sim/control.py", "sim/campaign.py", "sim/registry.py",
                 "dist/coordinator.py", "dist/worker.py", "dist/frames.py",
                 "optim/adamw.py", "optim/schedule.py", "optim/compress.py",

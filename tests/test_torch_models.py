@@ -146,29 +146,50 @@ def test_qwen3_4b_full_width_size():
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_non_dense_families_raise(arch):
-    """The families not ported yet raise, naming their ROADMAP item; the
-    recurrent families (ported, tests/test_torch_{rglru,xlstm}.py) build
-    their parameters with the JAX package's shapes."""
+    """Every non-dense family builds its parameters with the JAX
+    package's shapes and lands on the CPU when asked (the families'
+    parity: tests/test_torch_{moe,vlm,encdec,rglru,xlstm}.py); the MoE,
+    VLM and encoder-decoder families serve but still raise in training,
+    naming ROADMAP A11.2."""
     cfg = tconfigs.get_smoke(arch)
+    specs = treg.param_specs(cfg)
+    jspecs = jreg.param_specs(jconfigs.get_smoke(arch))
+    assert jax.tree.map(lambda s: tuple(s.shape), jspecs) == specs
+    p = treg.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert p["embed"].device.type == "cpu"
+    assert tuple(p["embed"].shape) == specs["embed"]
     if cfg.family in ("rglru", "xlstm"):
-        specs = treg.param_specs(cfg)
-        jspecs = jreg.param_specs(jconfigs.get_smoke(arch))
-        assert jax.tree.map(lambda s: tuple(s.shape), jspecs) == specs
-        p = treg.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-        assert tuple(p["embed"].shape) == specs["embed"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        treg.init(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.param_specs(cfg)
+    from repro_torch.train.step import grads_of
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11.2"):
+        grads_of(cfg, p, tokens, tokens, None)
 
 
 @pytest.mark.parametrize("field,value,item", [
     ("n_experts", 4, "A11"), ("frontend", "patch", "A11"),
-    ("tp_attention", True, "A12"), ("sp_decode", True, "A12")])
+    ("tp_attention", True, "A12"), ("sp_decode", True, "A12"),
+    ("moe_ffn_sharded", None, "A12")])
 def test_dense_options_not_ported_raise(field, value, item):
-    cfg = dataclasses.replace(tconfigs.get_smoke("qwen3_4b"),
-                              **{field: value})
+    """The mesh options raise, naming ROADMAP A12: ``tp_attention`` and
+    ``sp_decode`` in ``check_dense``, the expert-parallel MoE path when
+    called.  The MoE layers and the patch frontend (A11) are ported:
+    ``check_dense`` takes them and the parameter tree grows their
+    leaves."""
+    base = tconfigs.get_smoke("qwen3_4b")
+    if field == "moe_ffn_sharded":
+        from repro_torch.models import moe
+        cfg = tconfigs.get_smoke("olmoe_1b_7b")
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            moe.moe_ffn_sharded(cfg, {}, torch.zeros(1, 2, cfg.d_model))
+        return
+    cfg = dataclasses.replace(base, **{field: value})
+    if item == "A11":
+        ttf.check_dense(cfg)
+        specs = treg.param_specs(cfg)
+        assert ("moe" in specs["layers"]) == (field == "n_experts")
+        assert ("frontend_proj" in specs) == (field == "frontend")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ttf.check_dense(cfg)
 
@@ -201,10 +222,11 @@ def test_params_from_jax_checks_the_tree():
 
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "recurrentgemma_9b",
-                                  "xlstm_1_3b"])
+                                  "xlstm_1_3b", "olmoe_1b_7b"])
 def test_params_from_jax_keeps_float32_leaves(arch):
     """In a bfloat16 model the leaves that JAX keeps in float32 (the
-    recurrent families' gate weights) stay float32, bit for bit; every
+    recurrent families' gate weights, the MoE router) stay float32, bit
+    for bit; every
     other leaf, and every leaf of the dense family, takes the model's
     dtype."""
     jcfg = jconfigs.get_smoke(arch)
@@ -225,7 +247,7 @@ def test_params_from_jax_keeps_float32_leaves(arch):
             np.testing.assert_array_equal(t.view(torch.int16).numpy(),
                                           leaf.view(np.int16))
     assert n_f32 == {"qwen3_4b": 0, "recurrentgemma_9b": 5,
-                     "xlstm_1_3b": 4}[arch]
+                     "xlstm_1_3b": 4, "olmoe_1b_7b": 1}[arch]
 
 
 def test_params_from_jax_carries_bfloat16_bits():
