@@ -67,11 +67,15 @@ One JSON line per phase:
    256 on the CUDA cores (``csrc/flash_attention_bwd.cu``), each case
    with the source that ran; at the trainer's shape (B=4, S=1,024, 32/8
    heads, hd 128, causal; bfloat16 and float32, timed beside SDPA's
-   backward, two calls bit-equal), recurrentgemma's window shape (MQA,
-   hd 256, window 2,048) and the edge shapes (hd 8/24/40/64/96, Sq < Sk,
-   Sq and Sk off the tiles, GQA 8, windows 5 and 40, Sk = 0), and
-   through ``ops.flash_attention`` under autograd on non-contiguous
-   views;
+   backward, two calls bit-equal), at the shapes the other families'
+   train steps give it (timed the same way: seamless_m4t_medium's
+   cross-attention, 1,024 queries over 256 frames, non-causal, its
+   encoder's 256 frames, non-causal, and its decoder's 1,024 causal, all
+   16/16 heads at hd 64; olmoe_1b_7b's 16/16 heads at hd 128, causal),
+   recurrentgemma's window shape (MQA, hd 256, window 2,048) and the
+   edge shapes (hd 8/24/40/64/96, Sq < Sk, Sq and Sk off the tiles, GQA
+   8, windows 5 and 40, Sk = 0), and through ``ops.flash_attention``
+   under autograd on non-contiguous views;
 12. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
    hd=128, S=1056, ragged lengths), at S=8192, at recurrentgemma's
    ring buffer (S=2,048, MQA, hd 256), at seamless_m4t_medium's self
@@ -98,7 +102,7 @@ One JSON line per phase:
    qwen3_4b in bfloat16 (random weights from a seed), 4 prompts of 1,024
    tokens, 32 new tokens; one warm-up ``generate`` and 3 timed ones,
    each with the kernel counters set to 0 just before and read just
-   after; then one profiled ``generate`` and profiled decode steps;
+   after; then one profiled ``generate`` and 8 profiled decode steps;
 16. serve_parity — the same entry point at full width, 2 layers,
    float32: the card's logits and greedy tokens against the CPU run of
    the same parameters (the plain versions);
@@ -135,6 +139,17 @@ One JSON line per phase:
 21. train_parity — three train steps at full width, 2 layers, float32,
    on the card and on the CPU from the same parameters and batches:
    losses, grad norms, parameters and AdamW moments within 1e-4;
+21b. train_moe, train_vlm, train_encdec, each followed by its
+   train_parity_* phase — the train phase on olmoe_1b_7b (10 of its 16
+   layers; the slots its warm-up step drops counted), pixtral_12b (12 of
+   40 layers; 512 patch embeddings) and seamless_m4t_medium (whole: 12 +
+   12 layers; 256 audio frames) at full width, bfloat16, global batch 4
+   of 1,024 tokens, one warm-up, two timed and one profiled step, the
+   launches of every step exact (seamless: its encoder's attention, and
+   its decoder's self- and cross-attention); then two train steps card
+   against CPU at full width in float32 (olmoe 2 layers, pixtral 1,
+   seamless 1 + 1; 2 x 128 tokens with 64 patches or frames) within
+   1e-4, olmoe's first layer dropping the same slots on both sides;
 22. live_recovery, live_colocated — ``record_live_recovery`` and
    ``record_live_colocated`` on the card (smoke config): the real trainer
    loses a host, restores a committed checkpoint and re-meshes (ordered
@@ -880,7 +895,7 @@ def loop_s(torch, run) -> tuple:
 
 
 def phase_check_interval(torch, np, dev, axis, tick: int,
-                         intervals=(1, 4, 16), repeats: int = 15):
+                         intervals=(1, 4, 16), repeats: int = 5):
     """Round-loop wall time with the stop condition read back every K
     rounds (``engine_torch.CHECK_EVERY``), K interleaved over
     ``repeats``: the main path's loop (V = 1) and the sweep's loop
@@ -997,6 +1012,11 @@ DECODE_CASES = [("main", 4, 32, 8, 1056, 128, [1, 300, 777, 1056], True),
 #: its 2,048 window, so the window binds in flash_attention, prefill
 #: rolls the ring buffer and decode writes over old slots.
 SERVE = ("qwen3_4b", 4, 1024, 32)
+#: decode steps a serve phase profiles after its timed ``generate``s: the
+#: profiler's host work grows with the device operations it records
+#: (about 0.2 ms each on the card's host; 3,500 a qwen3_4b step), so 8 of
+#: the 31 steps keep the script inside its time
+PROFILED_DECODE_STEPS = 8
 SERVE_RGLRU = ("recurrentgemma_9b", 4, 3072, 32)
 SERVE_XLSTM = ("xlstm_1_3b", 4, 1024, 32)
 #: olmoe's prefill routes 4,096 tokens x 8 slots into 64 experts of 640
@@ -1053,7 +1073,11 @@ MLSTM_CASES = [(16, 1024, 1024, False, True, BOTH),
 #: queries than keys under the causal mask, a window narrower than a key
 #: tile, and Sk = 0; and on the bf16 tensor-core route hd 64 (GQA 8, a
 #: window of 40, S off the tiles) and hd 96 (Sq < Sk, both off the tiles),
-#: and a window of 5 at hd 64
+#: and a window of 5 at hd 64; then the shapes the MoE, VLM and
+#: encoder-decoder train steps give it (timed): seamless's cross-attention
+#: (1,024 queries over 256 frames, non-causal), its encoder (256 frames,
+#: non-causal) and decoder self-attention (hd 64, 16/16 heads), and
+#: olmoe's (16/16 heads, hd 128); pixtral's is the trainer's shape
 FLASH_BWD_CASES = [("train", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                    ("rglru_window", 1, 16, 1, 3072, 3072, 256, True, 2048,
                     False),
@@ -1069,10 +1093,26 @@ FLASH_BWD_CASES = [("train", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                    ("hd64_gqa8_window40", 2, 16, 2, 300, 300, 64, True, 40,
                     False),
                    ("hd96_sq_lt_sk", 1, 8, 2, 190, 257, 96, True, 0, False),
-                   ("hd64_window5", 1, 4, 2, 200, 200, 64, True, 5, False)]
+                   ("hd64_window5", 1, 4, 2, 200, 200, 64, True, 5, False),
+                   ("seamless_cross", 4, 16, 16, 1024, 256, 64, False, 0,
+                    True),
+                   ("seamless_encoder", 4, 16, 16, 256, 256, 64, False, 0,
+                    True),
+                   ("seamless_decoder", 4, 16, 16, 1024, 1024, 64, True, 0,
+                    True),
+                   ("olmoe", 4, 16, 16, 1024, 1024, 128, True, 0, True)]
 #: the training path: (arch, global batch, sequence length, warm-up steps,
-#: timed steps), full width and depth in bfloat16 with the config's remat
-TRAIN = ("qwen3_4b", 4, 1024, 1, 4)
+#: timed steps, layers or None for the config's), full width in bfloat16
+#: with the config's remat
+TRAIN = ("qwen3_4b", 4, 1024, 1, 4, None)
+#: the MoE, VLM and encoder-decoder train paths, by family: full width,
+#: depth cut to fit 80 GB with bf16 weights and gradients and float32
+#: AdamW moments (about 12 bytes a parameter): olmoe 10 of 16 layers
+#: (4.4 B parameters), pixtral 12 of 40 (4.6 B), seamless whole (12 + 12
+#: layers, 0.98 B); 1 warm-up, 2 timed and 1 profiled step each
+TRAIN_FAMILIES = (("moe", ("olmoe_1b_7b", 4, 1024, 1, 2, 10)),
+                  ("vlm", ("pixtral_12b", 4, 1024, 1, 2, 12)),
+                  ("encdec", ("seamless_m4t_medium", 4, 1024, 1, 2, None)))
 #: the train step's device operations by class, from their kernel names
 #: (the first class whose key a name contains; the rest are "other")
 TRAIN_OP_CLASSES = (("attention_bwd", ("flash_bwd",)),
@@ -1086,6 +1126,16 @@ TRAIN_OP_CLASSES = (("attention_bwd", ("flash_bwd",)),
 #: turns a gradient whose sign differs at rounding level into a step of
 #: +-lr, so lr stays below the parameters' tolerance
 TRAIN_PARITY = (2, 2, 128, 3, 1e-5)
+#: the three families' training parity: (family, arch, (layers, batch,
+#: sequence length, steps, peak lr), config overrides), full width,
+#: float32, S = 128 with 64 patches or frames: olmoe 2 layers; pixtral 1
+#: (its float32 weights, gradients and moments are about 26 GB on the
+#: host); seamless 1 + 1
+TRAIN_PARITY_FAMILIES = (
+    ("moe", "olmoe_1b_7b", (2, 2, 128, 2, 1e-5), {}),
+    ("vlm", "pixtral_12b", (1, 2, 128, 2, 1e-5), {}),
+    ("encdec", "seamless_m4t_medium", (1, 2, 128, 2, 1e-5),
+     {"n_enc_layers": 1}))
 
 
 def sdpa(q, k, v, **kw):
@@ -1536,13 +1586,23 @@ def expected_launches(cfg, decode_steps: int) -> dict:
 
 
 def expected_train_launches(cfg, n_steps: int) -> dict:
-    """Each model kernel's launches in ``n_steps`` train steps of a dense
-    model: the attention forward once per layer, again per layer when
-    ``cfg.remat`` recomputes it in the backward, and the backward once
-    per layer; no decode or recurrent kernel."""
-    fwd = cfg.n_layers * (2 if cfg.remat else 1)
+    """Each model kernel's launches in ``n_steps`` train steps: every
+    attention call of the forward (one per layer of a dense, MoE or VLM
+    transformer; the encoder-decoder's encoder layers, and two per
+    decoder layer, self and cross) once, again when ``cfg.remat``
+    recomputes its layer in the backward, and its backward once; no
+    decode or recurrent kernel (the recurrent families do not train on
+    the card, ROADMAP A8.2)."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        n_attn = cfg.n_layers
+    elif cfg.family == "encdec":
+        n_attn = (cfg.n_enc_layers or cfg.n_layers) + 2 * cfg.n_layers
+    else:
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family does not "
+                         f"train on the card")
+    fwd = n_attn * (2 if cfg.remat else 1)
     return {"flash_attention": n_steps * fwd,
-            "flash_attention_bwd": n_steps * cfg.n_layers,
+            "flash_attention_bwd": n_steps * n_attn,
             "decode_attention": 0, "rglru_scan": 0, "mlstm_chunkwise": 0}
 
 
@@ -1669,7 +1729,7 @@ def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
     _, cache = srv._prefill(params, torch.from_numpy(prompts).to(dev), fe)
     tok = torch.zeros(batch, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
-    n_steps = new - 1
+    n_steps = min(new - 1, PROFILED_DECODE_STEPS)
     _zero_kernel_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2009,14 +2069,18 @@ def phase_flash_attention_bwd(torch, np, dev):
     return main[0]
 
 
-def phase_train(torch, np, dev, spec=TRAIN):
-    """The training path: ``Trainer`` on full-width, full-depth qwen3_4b
-    in bfloat16 (random weights from a seed, synthetic data), AdamW, no
-    checkpoint; one warm-up step and the timed ones, each with the kernel
-    counters set to 0 just before and read just after and checked
-    against ``expected_train_launches``; then one profiled step (the
-    card's idle share, the top device operations) and one gradient of the
-    trained parameters, every leaf present and finite."""
+def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
+    """A training path: ``Trainer`` at the arch's full width in bfloat16
+    (random weights from a seed, synthetic data with the frontend's
+    embeddings), AdamW, no checkpoint; ``spec`` is (arch, batch, sequence
+    length, warm-up steps, timed steps, layers or None).  Each step with
+    the kernel counters set to 0 just before and read just after and
+    checked against ``expected_train_launches``; a MoE's dropped slots
+    counted in the warm-up step (the count reads the card); then one
+    profiled step (the card's idle share, the top device operations, the
+    classes of ``TRAIN_OP_CLASSES``) and one gradient of the trained
+    parameters, every leaf present and finite."""
+    import dataclasses
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2025,10 +2089,13 @@ def phase_train(torch, np, dev, spec=TRAIN):
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.runtime import Trainer, TrainerConfig
     from repro_torch.train.step import grads_of
-    arch, batch, seq_len, warm, timed = spec
+    arch, batch, seq_len, warm, timed, n_layers = spec
     cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    drops = None
     with tempfile.TemporaryDirectory() as ckpt:
         tcfg = TrainerConfig(n_steps=warm + timed + 1, seq_len=seq_len,
                              global_batch=batch, n_microbatch=1,
@@ -2046,17 +2113,25 @@ def phase_train(torch, np, dev, spec=TRAIN):
             torch.cuda.synchronize()
             _zero_kernel_counts()
             t0 = time.perf_counter()
-            params, opt, metrics = tr.step(params, opt, step, data)
+            if cfg.n_experts and step == 0:
+                (params, opt, metrics), kept = moe_keeps(
+                    lambda: tr.step(params, opt, step, data))
+                # each layer's forward; under remat the backward's
+                # recomputation follows
+                drops = [int((~keep).sum())
+                         for _cap, keep in kept[:cfg.n_layers]]
+            else:
+                params, opt, metrics = tr.step(params, opt, step, data)
             loss = float(metrics["loss"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _kernel_counts()
             if counts != want:
-                raise AssertionError(f"train step {step}: launches {counts}, "
-                                     f"expected {want}")
+                raise AssertionError(f"{phase} step {step}: launches "
+                                     f"{counts}, expected {want}")
             gnorm = float(metrics["grad_norm"])
             if not (np.isfinite(loss) and np.isfinite(gnorm)):
-                raise AssertionError(f"train step {step}: loss {loss}, "
+                raise AssertionError(f"{phase} step {step}: loss {loss}, "
                                      f"grad_norm {gnorm}")
             steps.append({"step": step, "wall_s": wall, "loss": loss,
                           "grad_norm": gnorm, "lr": float(metrics["lr"]),
@@ -2073,6 +2148,9 @@ def phase_train(torch, np, dev, spec=TRAIN):
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
         launched = _launched()
+        if _kernel_counts() != want:
+            raise AssertionError(f"{phase} profiled step: launches "
+                                 f"{_kernel_counts()}, expected {want}")
         by_kernel, seen = _device_kernels(prof, launched)
         busy_s = sum(by_kernel.values()) / 1e6
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
@@ -2086,24 +2164,30 @@ def phase_train(torch, np, dev, spec=TRAIN):
         torch.cuda.empty_cache()
         data = tr.data.batch(0)
         grads, _ = grads_of(cfg, params, data["tokens"], data["labels"],
-                            None)
+                            data.get("frontend_embeds"))
         leaves = tree_leaves(grads)
         bad = [i for i, gl in enumerate(leaves)
                if gl is None or not bool(torch.isfinite(gl).all())]
         n_leaves = len(leaves)
         if bad or n_leaves != len(tree_leaves(params)):
-            raise AssertionError(f"train: {len(bad)} parameter leaves "
+            raise AssertionError(f"{phase}: {len(bad)} parameter leaves "
                                  f"without a finite gradient")
-        del grads, leaves, params
+        fe = data.get("frontend_embeds")
+        del grads, leaves, params, tr, data
     torch.cuda.empty_cache()
     timed_walls = [r["wall_s"] for r in steps[warm:]]
     med = statistics.median(timed_walls)
-    emit("train", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+    emit(phase, arch=cfg.name, n_layers=cfg.n_layers,
+         n_enc_layers=cfg.n_enc_layers, d_model=cfg.d_model,
          n_params=cfg.n_params(), dtype="bfloat16", remat=cfg.remat,
          global_batch=batch, seq_len=seq_len, n_microbatch=1,
+         frontend_embeds=None if fe is None else list(fe.shape),
          warmup_steps=warm, init_s=init_s, steps=steps,
          step_s_median=med, tokens_per_s=batch * seq_len / med,
          peak_memory_bytes=peak, expected_launches_per_step=want,
+         moe_slots=None if drops is None else
+         batch * seq_len * cfg.top_k,
+         moe_dropped_slots_by_layer=drops,
          profiled_step_wall_s=prof_wall, profiled_step_device_busy_s=busy_s,
          profiled_step_device_idle_share=1 - busy_s / prof_wall,
          profiled_step_device_ops=_device_ops(prof),
@@ -2115,16 +2199,20 @@ def phase_train(torch, np, dev, spec=TRAIN):
     return {k: v * timed for k, v in want.items()}
 
 
-def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY):
+def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
+                       arch: str = TRAIN[0], overrides=None,
+                       phase: str = "train_parity"):
     """Full width, cut depth, float32: the same train steps on the card
     (kernels) and on the CPU (plain versions), from the same parameters
-    and batches.  Per step, loss and grad norm within 1e-4 relative;
-    after the last, every parameter and AdamW moment within 1e-4 x
-    max(1, the leaf's largest |value|)."""
+    and batches (with the frontend's embeddings).  Per step, loss and
+    grad norm within 1e-4 relative, and a MoE's first layer dropping the
+    same slots on both sides, and some; after the last, every parameter
+    and AdamW moment within 1e-4 x max(1, the leaf's largest |value|)."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.shapes import frontend_tokens
     from repro_torch.models import registry
     from repro_torch.optim import adamw_init
     from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -2133,8 +2221,10 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY):
     torch.backends.cudnn.allow_tf32 = False
     tol = 1e-4
     n_layers, batch, seq_len, n_steps, peak_lr = spec
-    cfg = dataclasses.replace(configs.get(TRAIN[0]), n_layers=n_layers,
-                              dtype=torch.float32)
+    overrides = overrides or {}
+    cfg = dataclasses.replace(configs.get(arch), n_layers=n_layers,
+                              dtype=torch.float32, **overrides)
+    n_front = frontend_tokens(cfg, seq_len)
     torch.cuda.empty_cache()
     gpu = registry.init(cfg, torch.Generator(device=dev).manual_seed(3),
                         device=dev)
@@ -2147,28 +2237,40 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY):
     _zero_kernel_counts()
     seconds = {"card": 0.0, "cpu": 0.0}
     for i in range(n_steps):
-        out = {}
+        out, first = {}, {}
         for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
             data = SyntheticLMData(vocab=cfg.vocab, seq_len=seq_len,
-                                   global_batch=batch, seed=5, device=d)
+                                   global_batch=batch, seed=5,
+                                   frontend_dim=cfg.frontend_dim,
+                                   frontend_tokens=n_front, device=d)
             t0 = time.perf_counter()
-            p, o, m = step(*states[where], i, data.batch(i))
+            (p, o, m), kept = moe_keeps(
+                lambda: step(*states[where], i, data.batch(i)))
             out[where] = {k: float(v) for k, v in m.items()}
             seconds[where] += time.perf_counter() - t0
             states[where] = (p, o)
+            first[where] = kept[0][1] if kept else None
         rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
                for k in ("loss", "grad_norm")}
         if not all(r <= tol for r in rel.values()):
-            raise AssertionError(f"train_parity step {i}: {out} ({rel})")
+            raise AssertionError(f"{phase} step {i}: {out} ({rel})")
+        drops = None
+        if cfg.n_experts:
+            drops = int((~first["cpu"]).sum())
+            if not torch.equal(first["card"], first["cpu"]) or drops == 0:
+                raise AssertionError(
+                    f"{phase} step {i}: first layer's dropped slots "
+                    f"{int((~first['card']).sum())} on the card, {drops} "
+                    f"on the CPU (must be equal, non-empty)")
         rows.append({"step": i, **{f"{k}_card": out["card"][k]
                                    for k in ("loss", "grad_norm", "lr")},
                      **{f"{k}_cpu": out["cpu"][k]
-                        for k in ("loss", "grad_norm")}, "rel_err": rel})
+                        for k in ("loss", "grad_norm")}, "rel_err": rel,
+                     "first_layer_dropped": drops})
     counts = _kernel_counts()
     want = expected_train_launches(cfg, n_steps)
     if counts != want:
-        raise AssertionError(f"train_parity: launches {counts}, expected "
-                             f"{want}")
+        raise AssertionError(f"{phase}: launches {counts}, expected {want}")
     (pc, oc), (ph, oh) = states["card"], states["cpu"]
     worst = {}
     for part, a_tree, c_tree in (("params", pc, ph), ("m", oc["m"], oh["m"]),
@@ -2179,13 +2281,14 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY):
             errs.append(float((a.cpu() - c).abs().max()) / scale)
         worst[part] = max(errs)
         if not worst[part] <= tol:
-            raise AssertionError(f"train_parity: {part} differ by "
+            raise AssertionError(f"{phase}: {part} differ by "
                                  f"{worst[part]} (relative to max(1, "
                                  f"scale))")
     del states, pc, oc, ph, oh
     torch.cuda.empty_cache()
-    emit("train_parity", arch=cfg.name, n_layers=n_layers, dtype="float32",
-         remat=cfg.remat, batch=batch, seq_len=seq_len, steps=rows,
+    emit(phase, arch=cfg.name, n_layers=n_layers, overrides=overrides,
+         dtype="float32", remat=cfg.remat, batch=batch, seq_len=seq_len,
+         frontend_tokens=n_front, steps=rows,
          peak_lr=peak_lr, tolerance=tol, worst_relative_to_scale=worst,
          launches=counts, seconds=seconds)
     return counts
@@ -2323,6 +2426,13 @@ def main() -> int:
                            f"serve_parity_{fam}")
     by_path["train"] = phase_train(torch, np, dev)
     by_path["train_parity"] = phase_train_parity(torch, np, dev)
+    parity = {fam: rest for fam, *rest in TRAIN_PARITY_FAMILIES}
+    for fam, spec in TRAIN_FAMILIES:
+        by_path[f"train_{fam}"] = phase_train(torch, np, dev, spec,
+                                              f"train_{fam}")
+        arch, pspec, overrides = parity[fam]
+        by_path[f"train_parity_{fam}"] = phase_train_parity(
+            torch, np, dev, pspec, arch, overrides, f"train_parity_{fam}")
     phase_live_recovery(torch, dev)
     phase_live_colocated(torch, dev)
     paths = {k: {"main_path": launches[k], "sweep": sweep_launches[k],

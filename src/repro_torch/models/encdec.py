@@ -142,16 +142,24 @@ def _cross_q(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     return _heads(cm.rms_norm(x, lp["ln_x"], cfg.norm_eps), lp["xq"])
 
 
+def _enc_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    q, k, v = _self_qkv(cfg, lp, x, positions)
+    o = attn.multi_head_attention(q, k, v, causal=False)
+    return _mlp_block(cfg, lp, _merge(x, o, lp["wo"]))
+
+
 def encode(cfg: ModelConfig, params: dict,
            frontend_embeds: torch.Tensor) -> torch.Tensor:
     """Frame embeddings (B, S_enc, frontend_dim), cast to the model's
-    dtype -> the encoder output (B, S_enc, D)."""
+    dtype -> the encoder output (B, S_enc, D).  Under grad,
+    ``cfg.remat`` recomputes each layer in the backward, as the JAX
+    package's ``scan_layers`` does."""
     x = frontend_embeds.to(cfg.dtype) @ params["frontend_proj"]
     positions = torch.arange(x.shape[1], device=x.device)
+    block = cm.maybe_remat(cfg, _enc_layer)
     for lp in cm.unstack(params["enc"], cfg.n_enc_layers or cfg.n_layers):
-        q, k, v = _self_qkv(cfg, lp, x, positions)
-        o = attn.multi_head_attention(q, k, v, causal=False)
-        x = _mlp_block(cfg, lp, _merge(x, o, lp["wo"]))
+        x = block(cfg, lp, x, positions)
     return cm.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -183,12 +191,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None,
             return_aux: bool = False):
     """tokens (B, S_dec), frontend_embeds (B, S_enc, F) -> logits (B,
-    S_dec, V) float32 [+ aux loss 0]."""
+    S_dec, V) float32 [+ aux loss 0].  Trainable: under grad,
+    ``cfg.remat`` recomputes each encoder and decoder layer in the
+    backward (:func:`common.maybe_remat`)."""
     enc_out = encode(cfg, params, _frames(frontend_embeds))
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
+    block = cm.maybe_remat(cfg, _dec_layer)
     for lp in cm.unstack(params["dec"], cfg.n_layers):
-        x, _ = _dec_layer(cfg, lp, x, enc_out, positions)
+        x, _ = block(cfg, lp, x, enc_out, positions)
     logits = cm.final_logits(cfg, params, x)
     if return_aux:
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticLMData
+from repro_torch.launch import shapes as shp
 from repro_torch.models import registry
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -73,6 +74,8 @@ class Trainer:
         self.data = SyntheticLMData(
             vocab=cfg.vocab, seq_len=tcfg.seq_len,
             global_batch=tcfg.global_batch, seed=tcfg.seed,
+            frontend_dim=cfg.frontend_dim,
+            frontend_tokens=shp.frontend_tokens(cfg, tcfg.seq_len),
             device=self.device)
         self.history: list = []
         self.restarts = 0

@@ -6,8 +6,13 @@ batch); nothing is compiled.  It differentiates the loss with autograd
 (attention's gradient is the ``flash_attention`` backward kernel on the
 card) and updates parameters and moments in place
 (:func:`repro_torch.optim.adamw_update`), the counterpart of the JAX
-step's donated buffers.  Every parameter leaf must get a gradient: a
-leaf that the loss does not reach raises rather than train silently.
+step's donated buffers.  Every family trains: dense, MoE (the loss adds
+``router_aux_coef`` times the load-balancing loss, as the JAX step
+does), VLM and encoder-decoder (``frontend_embeds`` in the batch), and
+on the CPU the recurrent families (their kernels raise under grad on the
+card, ROADMAP A8.2).  A leaf that the loss does not reach gets a zero
+gradient, as ``jax.grad`` gives it, so AdamW still decays it; a loss
+that reaches no leaf raises.
 
 The JAX package's sharding constraints (``cfg.gather_weights_once``,
 microbatch sharding) have no effect on one device and are left out, as
@@ -28,10 +33,14 @@ from repro_torch.optim.adamw import tree_leaves, tree_map
 
 
 def _loss_fn(cfg: ModelConfig, params, tokens, labels, frontend_embeds):
-    if cfg.family in ("moe", "vlm", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"yet (ROADMAP A11.2); it serves")
+    """(loss, ce): a MoE adds ``router_aux_coef`` times the mean
+    load-balancing loss over its layers."""
+    if cfg.n_experts > 0:
+        logits, aux = registry.forward(cfg, params, tokens,
+                                       frontend_embeds=frontend_embeds,
+                                       return_aux=True)
+        ce = softmax_cross_entropy(logits[:, :-1], labels[:, 1:])
+        return ce + cfg.router_aux_coef * aux, ce
     logits = registry.forward(cfg, params, tokens,
                               frontend_embeds=frontend_embeds)
     ce = softmax_cross_entropy(logits[:, :-1], labels[:, 1:])
@@ -40,7 +49,9 @@ def _loss_fn(cfg: ModelConfig, params, tokens, labels, frontend_embeds):
 
 def grads_of(cfg: ModelConfig, params, tokens, labels, frontend_embeds):
     """(gradient tree in the parameters' dtype, ce) of one microbatch.
-    Raises if a parameter gets no gradient."""
+    A leaf that the loss does not reach (a VLM's ``frontend_proj`` with
+    no frontend embeddings) gets zeros, as ``jax.grad`` gives it; raises
+    if the loss reaches no leaf at all."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -48,15 +59,16 @@ def grads_of(cfg: ModelConfig, params, tokens, labels, frontend_embeds):
         with torch.enable_grad():
             loss, ce = _loss_fn(cfg, params, tokens, labels,
                                 frontend_embeds)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
+                     if loss.requires_grad else [None] * len(leaves))
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    if any(g is None for g in grads):
-        raise RuntimeError(
-            f"{cfg.name}: {sum(g is None for g in grads)} parameter leaves "
-            f"got no gradient")
-    it = iter(grads)
+    if all(g is None for g in grads):
+        raise RuntimeError(f"{cfg.name}: the loss reaches no parameter "
+                           f"leaf; every leaf got no gradient")
+    it = iter([torch.zeros_like(p) if g is None else g
+               for g, p in zip(grads, leaves)])
     return tree_map(lambda _p: next(it), params), ce.detach()
 
 

@@ -241,10 +241,16 @@ def test_flash_strided_views_vs_plain(dev, dtype, kind):
 
 
 # (B, H, Hkv, Sq, Sk, hd, causal, window): the trainer's full-width shape
-# (qwen3_4b, B=4, S=1,024), recurrentgemma's window shape, the forward's
-# edge shapes and Sk = 0
+# (qwen3_4b, B=4, S=1,024), recurrentgemma's window shape, the shapes of
+# the other families' train steps (seamless_m4t_medium's cross-attention,
+# encoder and decoder self-attention; olmoe_1b_7b's), the forward's edge
+# shapes and Sk = 0
 FLASH_BWD = ([(4, 32, 8, 1024, 1024, 128, True, 0),
-              (1, 16, 1, 3072, 3072, 256, True, 2048)]
+              (1, 16, 1, 3072, 3072, 256, True, 2048),
+              (4, 16, 16, 1024, 256, 64, False, 0),
+              (4, 16, 16, 256, 256, 64, False, 0),
+              (4, 16, 16, 1024, 1024, 64, True, 0),
+              (4, 16, 16, 1024, 1024, 128, True, 0)]
              + [e for e in FLASH_EDGE if e[3] > 1]
              + [(2, 4, 2, 30, 0, 64, True, 0)])
 
@@ -402,16 +408,33 @@ def test_train_steps_card_vs_cpu(dev):
     grad norms within 1e-4 relative, parameters and moments within 1e-4
     x max(1, scale); on the card the attention's forward (twice a layer:
     remat) and backward kernels launch."""
+    _train_card_vs_cpu(dev, "qwen3_4b")
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "pixtral_12b",
+                                  "seamless_m4t_medium"])
+def test_family_train_steps_card_vs_cpu(dev, arch):
+    """The same for the MoE, VLM and encoder-decoder smoke configs, with
+    their frontend embeddings: every attention call (seamless: encoder,
+    decoder self and cross) launches the forward twice under remat and
+    the backward once."""
+    _train_card_vs_cpu(dev, arch)
+
+
+def _train_card_vs_cpu(dev, arch):
     from repro_torch import configs
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_flat)
+    from repro_torch.launch.shapes import frontend_tokens
     from repro_torch.models import registry
     from repro_torch.optim import adamw_init
     from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.train.step import build_train_step
-    cfg = dataclasses.replace(configs.get_smoke("qwen3_4b"),
+    cfg = dataclasses.replace(configs.get_smoke(arch),
                               dtype=torch.float32, remat=True)
+    n_attn = cfg.n_layers + (cfg.n_layers + cfg.n_enc_layers
+                             if cfg.family == "encdec" else 0)
     params = registry.init(cfg, torch.Generator(device=dev).manual_seed(1),
                            device=dev)
     cpu = tree_map(lambda t: t.cpu(), params)
@@ -424,15 +447,18 @@ def test_train_steps_card_vs_cpu(dev):
         out = {}
         for where, d in (("card", dev), ("cpu", "cpu")):
             data = SyntheticLMData(vocab=cfg.vocab, seq_len=64,
-                                   global_batch=2, device=d)
+                                   global_batch=2,
+                                   frontend_dim=cfg.frontend_dim,
+                                   frontend_tokens=frontend_tokens(cfg, 64),
+                                   device=d)
             p, o, m = step(*states[where], i, data.batch(i))
             states[where] = (p, o)
             out[where] = m
         for key in ("loss", "grad_norm"):
             a, c = float(out["card"][key]), float(out["cpu"][key])
             assert abs(a - c) <= 1e-4 * abs(c), (i, key, a, c)
-    assert flash_attention_flat.launches - fwd == 3 * 2 * cfg.n_layers
-    assert flash_attention_bwd.launches - bwd == 3 * cfg.n_layers
+    assert flash_attention_flat.launches - fwd == 3 * 2 * n_attn
+    assert flash_attention_bwd.launches - bwd == 3 * n_attn
     (pc, oc), (ph, oh) = states["card"], states["cpu"]
     for a, c in zip(tree_leaves({"p": pc, "m": oc["m"], "v": oc["v"]}),
                     tree_leaves({"p": ph, "m": oh["m"], "v": oh["v"]})):

@@ -45,7 +45,8 @@ def test_port_files_exist():
                 "optim/adamw.py", "optim/schedule.py", "optim/compress.py",
                 "train/step.py", "data/pipeline.py",
                 "checkpoint/manager.py", "runtime/trainer.py",
-                "parallel/ctx.py", "launch/mesh.py", "live/__main__.py"):
+                "parallel/ctx.py", "launch/mesh.py", "live/__main__.py",
+                "core/des.py", "core/workloads.py", "launch/shapes.py"):
         assert f"repro_torch/{mod}" in names, mod
     for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",
                 "decode_attention.cu", "rglru_scan.cu", "mlstm_kernel.cu",
@@ -110,6 +111,10 @@ def test_port_runs_with_jax_and_repro_blocked():
                              checkpoint_dir=tempfile.mkdtemp())
         out = Trainer(cfg, tcfg, log_fn=lambda s: None, device="cpu").run()
         assert out["final_step"] == 2, out
+        from repro_torch.core import workloads
+        from repro_torch.launch import shapes
+        assert workloads.arith_des(iters=2).mode == "des"
+        assert shapes.frontend_tokens(configs.get("pixtral_12b"), 64) == 32
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad

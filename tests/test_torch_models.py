@@ -149,8 +149,9 @@ def test_non_dense_families_raise(arch):
     """Every non-dense family builds its parameters with the JAX
     package's shapes and lands on the CPU when asked (the families'
     parity: tests/test_torch_{moe,vlm,encdec,rglru,xlstm}.py); the MoE,
-    VLM and encoder-decoder families serve but still raise in training,
-    naming ROADMAP A11.2."""
+    VLM and encoder-decoder families train: every leaf gets a finite
+    gradient (the train step's parity:
+    tests/test_torch_train_families.py)."""
     cfg = tconfigs.get_smoke(arch)
     specs = treg.param_specs(cfg)
     jspecs = jreg.param_specs(jconfigs.get_smoke(arch))
@@ -160,10 +161,18 @@ def test_non_dense_families_raise(arch):
     assert tuple(p["embed"].shape) == specs["embed"]
     if cfg.family in ("rglru", "xlstm"):
         return
+    from repro_torch.launch.shapes import frontend_tokens
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train.step import grads_of
-    tokens = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11.2"):
-        grads_of(cfg, p, tokens, tokens, None)
+    tokens = torch.arange(8, dtype=torch.int64)[None] % cfg.vocab
+    nf = frontend_tokens(cfg, tokens.shape[1])
+    fe = (torch.randn((1, nf, cfg.frontend_dim),
+                      generator=torch.Generator().manual_seed(1))
+          if nf else None)
+    grads, ce = grads_of(cfg, p, tokens, tokens, fe)
+    assert bool(torch.isfinite(ce))
+    for g, leaf in zip(tree_leaves(grads), tree_leaves(p)):
+        assert g.shape == leaf.shape and bool(torch.isfinite(g).all())
 
 
 @pytest.mark.parametrize("field,value,item", [

@@ -121,14 +121,26 @@ def test_lr_schedule_matches_jax(kw):
 
 
 def test_data_pipeline_bit_equal_to_jax():
-    j = JData(vocab=256, seq_len=16, global_batch=4, seed=3)
-    t = TData(vocab=256, seq_len=16, global_batch=4, seed=3, device="cpu")
-    for step in (0, 7, 12):
-        got = t.batch(step)
-        assert got["tokens"].dtype == torch.int32
-        np.testing.assert_array_equal(got["tokens"].numpy(),
-                                      np.asarray(j.batch(step)["tokens"]))
-        assert torch.equal(got["labels"], got["tokens"])
+    """Tokens, and the frontend embeddings where the batch carries them
+    (a VLM's 8 patches or an encoder-decoder's 64 frames of width 12),
+    bit-equal to JAX's ``SyntheticLMData``."""
+    for nf, dim in ((0, 0), (8, 12), (64, 12)):
+        kw = dict(vocab=256, seq_len=16, global_batch=4, seed=3,
+                  frontend_dim=dim, frontend_tokens=nf)
+        j, t = JData(**kw), TData(device="cpu", **kw)
+        for step in (0, 7, 12):
+            got, want = t.batch(step), j.batch(step)
+            assert got["tokens"].dtype == torch.int32
+            np.testing.assert_array_equal(got["tokens"].numpy(),
+                                          np.asarray(want["tokens"]))
+            assert torch.equal(got["labels"], got["tokens"])
+            assert ("frontend_embeds" in got) == bool(nf)
+            if nf:
+                fe = got["frontend_embeds"]
+                assert fe.dtype == torch.float32
+                assert tuple(fe.shape) == (4, nf, dim)
+                np.testing.assert_array_equal(
+                    fe.numpy(), np.asarray(want["frontend_embeds"]))
 
 
 @pytest.mark.parametrize("n_steps", [1, 3])
@@ -160,12 +172,20 @@ def test_params_and_moments_update_in_place():
     assert not any(p.requires_grad for p in tree_leaves(tp2))
 
 
-def test_a_parameter_without_gradient_raises():
+def test_a_parameter_without_gradient_raises(monkeypatch):
+    """A leaf that the loss does not reach gets a zero gradient, as
+    ``jax.grad`` gives it (AdamW then decays it); a loss that reaches no
+    leaf at all raises."""
     _, tcfg = _cfgs("float32")
     _, (tp, _) = _states(*_cfgs("float32"))
-    tp["unused"] = torch.zeros(3)
+    tp["unused"] = torch.ones(3)
     batch = TData(vocab=tcfg.vocab, seq_len=8, global_batch=2,
                   device="cpu").batch(0)
+    grads, _ = grads_of(tcfg, tp, batch["tokens"], batch["labels"], None)
+    assert torch.equal(grads["unused"], torch.zeros(3))
+    assert bool(grads["embed"].any())
+    monkeypatch.setattr(treg, "forward", lambda cfg, params, tokens, **kw:
+                        torch.zeros(*tokens.shape, cfg.vocab))
     with pytest.raises(RuntimeError, match="got no gradient"):
         grads_of(tcfg, tp, batch["tokens"], batch["labels"], None)
 
