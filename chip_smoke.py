@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one CUDA card and hold it to its plain
 versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases NAME,...]
 
 Run from the root of a checkout.  It needs one CUDA card and ``nvcc``,
 imports only ``repro_torch``, ``torch``, numpy and the standard library,
@@ -10,9 +10,10 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — the eleven CUDA sources (the six kernels, the two attention
-   backwards and the empty ``launch_floor`` kernel) compiled from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
+2. build — the thirteen CUDA sources (the six kernels, the two attention
+   backwards, the two recurrences' backwards and the empty
+   ``launch_floor`` kernel) compiled from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` each, in parallel);
 3. launch_floor — an empty kernel launched through the same ctypes
    route, timed: what one launch costs, beside every bytes bound;
 4. minskew — kernel vs plain version on the card, bit-equal, timed at
@@ -71,8 +72,10 @@ One JSON line per phase:
    train steps give it (timed the same way: seamless_m4t_medium's
    cross-attention, 1,024 queries over 256 frames, non-causal, its
    encoder's 256 frames, non-causal, and its decoder's 1,024 causal, all
-   16/16 heads at hd 64; olmoe_1b_7b's 16/16 heads at hd 128, causal),
-   recurrentgemma's window shape (MQA, hd 256, window 2,048) and the
+   16/16 heads at hd 64; olmoe_1b_7b's 16/16 heads at hd 128, causal;
+   recurrentgemma_9b's train shape, B=4, S=1,024, 16/1 heads at hd 256,
+   causal, window 2,048, beside SDPA's backward under a boolean band
+   mask), recurrentgemma's window shape (MQA, hd 256, window 2,048) and the
    edge shapes (hd 8/24/40/64/96, Sq < Sk, Sq and Sk off the tiles, GQA
    8, windows 5 and 40, Sk = 0), and through ``ops.flash_attention``
    under autograd on non-contiguous views;
@@ -91,13 +94,25 @@ One JSON line per phase:
    with S not a multiple of the chunk, S = 1, S below one chunk and
    tests/test_kernels.py's shapes (padded S, h0), float32; each case
    with the kernel's T_c, W_t and grid, and two calls at the prefill
-   shape bit-equal;
+   shape bit-equal (the plain loop's device time from 2 profiled calls:
+   the profiler's host cost per recorded operation);
+13b. rglru_scan_bwd — the backward kernel (``csrc/rglru_scan_bwd.cu``)
+   vs its plain version (``rglru_bwd_plain``, a loop over S in reverse) at
+   recurrentgemma's train shape (B=4, S=1,024, W=4,096) without and with
+   h0 (two calls bit-equal), and S = 1, S = 515 with W = 4,099, S below
+   the chunk; the plain loop timed on few calls;
 14. mlstm_chunkwise — kernel vs plain version at xlstm's prefill shape
    (BH=16, S=1,024, hd=1,024), bfloat16 (the tensor-core kernel) and
    float32 (the first design), and edge shapes (S not a multiple of the
    chunk, an initial carry, small hd, in bfloat16 a head dim above the
    tensor-core kernel's limit), with the final (C, n) and the source
    that ran;
+14b. mlstm_chunkwise_bwd — the backward kernel
+   (``csrc/mlstm_kernel_bwd.cu``, float32 sums for both dtypes) vs its
+   plain version (``mlstm_chunkwise_bwd_plain``) at xlstm's train shape
+   (BH=16, S=1,024, hd=1,024), bfloat16 and float32, timed; S = 200 (a
+   padded tail), an initial (C, n), gradients of the final (C, n), and the
+   forward phase's small shapes; every case twice, bit-equal;
 15. serve — the serving path: ``BatchServer`` on full-width, full-depth
    qwen3_4b in bfloat16 (random weights from a seed), 4 prompts of 1,024
    tokens, 32 new tokens; one warm-up ``generate`` and 3 timed ones,
@@ -136,7 +151,7 @@ One JSON line per phase:
    layer, backward once, nothing else); one profiled step (idle share,
    top device operations); every parameter's gradient present and
    finite; peak memory;
-21. train_parity — three train steps at full width, 2 layers, float32,
+21. train_parity — two train steps at full width, 2 layers, float32,
    on the card and on the CPU from the same parameters and batches:
    losses, grad norms, parameters and AdamW moments within 1e-4;
 21b. train_moe, train_vlm, train_encdec, each followed by its
@@ -150,6 +165,17 @@ One JSON line per phase:
    against CPU at full width in float32 (olmoe 2 layers, pixtral 1,
    seamless 1 + 1; 2 x 128 tokens with 64 patches or frames) within
    1e-4, olmoe's first layer dropping the same slots on both sides;
+21c. train_rglru, train_xlstm, each followed by its train_parity_* phase
+   — the train phase on recurrentgemma_9b (9 of its 38 layers: 6
+   recurrent, 3 attention) and xlstm_1_3b (16 of 48: 14 mLSTM, 2 sLSTM)
+   at full width, bfloat16, remat, global batch 4 of 1,024 tokens, one
+   warm-up, two timed and one profiled step, the launches of every step
+   exact (``rglru_scan`` twice and its backward once a recurrent layer,
+   the attention kernels likewise; ``mlstm_chunkwise`` twice and its
+   backward once an mLSTM layer); then two train steps card against CPU
+   at full width in float32 (recurrentgemma 3 layers, rec, rec, attn, at
+   S = 128; xlstm one mLSTM and one sLSTM block at S = 200, which the
+   kernels pad) within 1e-4;
 22. live_recovery, live_colocated — ``record_live_recovery`` and
    ``record_live_colocated`` on the card (smoke config): the real trainer
    loses a host, restores a committed checkpoint and re-meshes (ordered
@@ -158,7 +184,7 @@ One JSON line per phase:
    async engines;
 23. kernels — one object per kernel: launches on its paths (the main
    path and the sweep for ``minskew`` and ``hub_route``, the train paths
-   for the attention backward), max error against the plain version,
+   for the backward kernels), max error against the plain version,
    times, the card's bound, the library call's time and, for the
    engine's two kernels, the launch floor.
 
@@ -177,6 +203,7 @@ the card named in phase 1.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import pathlib
@@ -250,6 +277,20 @@ def batch_ms(torch, fn, n: int = 20) -> float:
     return a.elapsed_time(b) / n
 
 
+def device_records(prof) -> dict:
+    """{name: (records, device us)} of the device operations (kernels,
+    copies, fills) a finished profile kept, read from its raw records:
+    ``key_averages()`` first builds an event tree, at about 0.2 ms of
+    host a record."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, us = out.get(e.name(), (0, 0.0))
+            out[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return out
+
+
 def device_ms(torch, fn, names=None, iters: int = 20):
     """Device time per call of ``fn()`` in ms from ``torch.profiler``,
     and the profiler's records per call.
@@ -260,7 +301,6 @@ def device_ms(torch, fn, names=None, iters: int = 20):
     the records the profiler kept, since it keeps only some records of
     a kernel launched through ctypes.  None where it saw no device
     time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -268,17 +308,15 @@ def device_ms(torch, fn, names=None, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0
-           and (names is None or any(n in e.key for n in names))]
-    records = sum(e.count for e in evs) / iters
+    evs = [(n, t) for k, (n, t) in device_records(prof).items()
+           if t > 0 and (names is None or any(x in k for x in names))]
+    records = sum(n for n, _ in evs) / iters
     if not evs:
         return None, records
     if names is None:
-        us = sum(e.self_device_time_total for e in evs) / iters
+        us = sum(t for _, t in evs) / iters
     else:
-        us = sum(e.self_device_time_total / e.count for e in evs)
+        us = sum(t / n for n, t in evs)
     return us / 1e3, records
 
 
@@ -296,7 +334,6 @@ def one_device_op(torch, fn, names, calls: int = 40,
     checked, never a single record; now and then it keeps none in a
     window, which shows nothing either way, so such a window is taken
     again, up to ``windows`` times."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -305,8 +342,7 @@ def one_device_op(torch, fn, names, calls: int = 40,
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        seen = {e.key: e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA}
+        seen = {k: n for k, (n, _) in device_records(prof).items()}
         if not seen:
             continue
         if (sum(seen.values()) > calls
@@ -668,7 +704,7 @@ def phase_main_path_breakdown(torch, dev):
         torch.cuda.synchronize()
         loop_prof_s = time.perf_counter() - tp
     by_kernel, _ = _device_kernels(
-        prof, {k: minskew.launches for k in MINSKEW_KERNELS})
+        device_records(prof), {k: minskew.launches for k in MINSKEW_KERNELS})
     busy_us = sum(by_kernel.values())
     kernels_us = {k: sum(us for n, us in by_kernel.items() if k in n)
                   for k in MINSKEW_KERNELS}
@@ -895,7 +931,7 @@ def loop_s(torch, run) -> tuple:
 
 
 def phase_check_interval(torch, np, dev, axis, tick: int,
-                         intervals=(1, 4, 16), repeats: int = 5):
+                         intervals=(1, 4, 16), repeats: int = 2):
     """Round-loop wall time with the stop condition read back every K
     rounds (``engine_torch.CHECK_EVERY``), K interleaved over
     ``repeats``: the main path's loop (V = 1) and the sweep's loop
@@ -1077,7 +1113,9 @@ MLSTM_CASES = [(16, 1024, 1024, False, True, BOTH),
 #: encoder-decoder train steps give it (timed): seamless's cross-attention
 #: (1,024 queries over 256 frames, non-causal), its encoder (256 frames,
 #: non-causal) and decoder self-attention (hd 64, 16/16 heads), and
-#: olmoe's (16/16 heads, hd 128); pixtral's is the trainer's shape
+#: olmoe's (16/16 heads, hd 128); pixtral's is the trainer's shape; and
+#: recurrentgemma's train step (16/1 heads at hd 256, window 2,048: the
+#: CUDA-core route, timed beside SDPA's backward under a band mask)
 FLASH_BWD_CASES = [("train", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                    ("rglru_window", 1, 16, 1, 3072, 3072, 256, True, 2048,
                     False),
@@ -1100,7 +1138,9 @@ FLASH_BWD_CASES = [("train", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                     True),
                    ("seamless_decoder", 4, 16, 16, 1024, 1024, 64, True, 0,
                     True),
-                   ("olmoe", 4, 16, 16, 1024, 1024, 128, True, 0, True)]
+                   ("olmoe", 4, 16, 16, 1024, 1024, 128, True, 0, True),
+                   ("rglru_train", 4, 16, 1, 1024, 1024, 256, True, 2048,
+                    True)]
 #: the training path: (arch, global batch, sequence length, warm-up steps,
 #: timed steps, layers or None for the config's), full width in bfloat16
 #: with the config's remat
@@ -1113,10 +1153,22 @@ TRAIN = ("qwen3_4b", 4, 1024, 1, 4, None)
 TRAIN_FAMILIES = (("moe", ("olmoe_1b_7b", 4, 1024, 1, 2, 10)),
                   ("vlm", ("pixtral_12b", 4, 1024, 1, 2, 12)),
                   ("encdec", ("seamless_m4t_medium", 4, 1024, 1, 2, None)))
+#: the recurrent train paths, full width, bf16, remat, steps as
+#: TRAIN_FAMILIES: recurrentgemma 9 of 38 layers (6 rec + 3 attn, 4.07 B
+#: parameters; at about 12 bytes a parameter and 4.2 GB a copy of the
+#: float32 logits over 256,000 entries, near 80 GB at 9); xlstm 16 of 48
+#: (14 mLSTM + 2 sLSTM), cut for time: the sLSTM is a loop over S with no
+#: kernel (ROADMAP B8), run about four times a step under remat
+TRAIN_RECURRENT = (("rglru", ("recurrentgemma_9b", 4, 1024, 1, 2, 9)),
+                   ("xlstm", ("xlstm_1_3b", 4, 1024, 1, 2, 16)))
 #: the train step's device operations by class, from their kernel names
 #: (the first class whose key a name contains; the rest are "other")
 TRAIN_OP_CLASSES = (("attention_bwd", ("flash_bwd",)),
                     ("attention_fwd", ("flash_sm90", "flash_kernel")),
+                    ("recurrence_bwd", ("rglru_bwd", "mlstm_bwd")),
+                    ("recurrence_fwd", ("rglru_chained", "mlstm_scores",
+                                        "mlstm_den", "mlstm_carry",
+                                        "scores_kernel", "carry_kernel")),
                     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
                     ("elementwise", ("elementwise", "copy", "fill")),
                     ("reduction", ("reduce", "softmax", "logsumexp",
@@ -1125,17 +1177,21 @@ TRAIN_OP_CLASSES = (("attention_bwd", ("flash_bwd",)),
 #: peak lr) at qwen3_4b's full width in float32, card against CPU.  AdamW
 #: turns a gradient whose sign differs at rounding level into a step of
 #: +-lr, so lr stays below the parameters' tolerance
-TRAIN_PARITY = (2, 2, 128, 3, 1e-5)
-#: the three families' training parity: (family, arch, (layers, batch,
+TRAIN_PARITY = (2, 2, 128, 2, 1e-5)
+#: the other families' training parity: (family, arch, (layers, batch,
 #: sequence length, steps, peak lr), config overrides), full width,
 #: float32, S = 128 with 64 patches or frames: olmoe 2 layers; pixtral 1
 #: (its float32 weights, gradients and moments are about 26 GB on the
-#: host); seamless 1 + 1
+#: host); seamless 1 + 1; recurrentgemma 3 (rec, rec, attn: about 44 GB
+#: on the host, which the one-card machine's 96 GiB holds); xlstm one
+#: mLSTM and one sLSTM block at S = 200, which the kernels pad
 TRAIN_PARITY_FAMILIES = (
     ("moe", "olmoe_1b_7b", (2, 2, 128, 2, 1e-5), {}),
     ("vlm", "pixtral_12b", (1, 2, 128, 2, 1e-5), {}),
     ("encdec", "seamless_m4t_medium", (1, 2, 128, 2, 1e-5),
-     {"n_enc_layers": 1}))
+     {"n_enc_layers": 1}),
+    ("rglru", "recurrentgemma_9b", (3, 2, 128, 2, 1e-5), {}),
+    ("xlstm", "xlstm_1_3b", (2, 2, 200, 2, 1e-5), {"slstm_every": 2}))
 
 
 def sdpa(q, k, v, **kw):
@@ -1186,11 +1242,18 @@ def _kernel_timings(torch, kern, names, iters: int = ITERS) -> dict:
                        device_ms(torch, kern, names)))}
 
 
-def _timings(torch, kern, plain, names, iters: int = ITERS) -> dict:
+def _timings(torch, kern, plain, names, iters: int = ITERS,
+             plain_iters: int = None) -> dict:
+    """The kernel's and the plain version's times; ``plain_iters`` calls
+    of the plain version for each of its three times where given (a loop
+    over S records thousands of operations a call, and the profiler
+    costs the host about 0.2 ms each)."""
+    n = plain_iters or iters
     return {**_kernel_timings(torch, kern, names, iters),
-            "plain_ms": timed_ms(torch, plain, iters),
-            "plain_batch_ms": batch_ms(torch, plain),
-            "plain_device_ms": device_ms(torch, plain)[0]}
+            "plain_ms": timed_ms(torch, plain, n, min(WARMUP, n)),
+            "plain_batch_ms": batch_ms(torch, plain, plain_iters or 20),
+            "plain_device_ms": device_ms(torch, plain,
+                                         iters=plain_iters or 20)[0]}
 
 
 def _library(torch, lib, iters: int = ITERS) -> dict:
@@ -1357,6 +1420,10 @@ def phase_decode_attention(torch, np, dev):
 
 
 RGLRU_KERNELS = ("rglru_chained_kernel",)
+RGLRU_BWD_KERNELS = ("rglru_bwd_chained_kernel",)
+#: the six kernels of csrc/mlstm_kernel_bwd.cu, each launched once a call
+MLSTM_BWD_KERNELS = ("mlstm_bwd_states", "mlstm_bwd_u", "mlstm_bwd_intra",
+                     "mlstm_bwd_walk", "mlstm_bwd_dk", "mlstm_bwd_gates")
 #: the device kernels of both routes: mlstm_kernel.cu's and
 #: mlstm_kernel_sm90.cu's
 MLSTM_KERNELS = ("scores_kernel", "carry_kernel", "mlstm_scores_sm90",
@@ -1405,7 +1472,7 @@ def phase_rglru_scan(torch, np, dev):
                      "plain_ms": ev[0].elapsed_time(ev[1])}
         else:
             times = _timings(torch, kern, lambda: rglru_plain(log_a, bv, h0),
-                             RGLRU_KERNELS, 10)
+                             RGLRU_KERNELS, 10, plain_iters=2)
         main.append({**case, **times, "bound_ms": bound, "bound_by": by,
                      "bytes": n_bytes, "library_ms": None})
     emit("rglru_scan", tolerance=ATTN_TOL["float32"], shapes=main,
@@ -1489,6 +1556,169 @@ def phase_mlstm_chunkwise(torch, np, dev):
     return main[0]
 
 
+#: (B, S, W, with h0, timed) for the rglru backward: recurrentgemma's train
+#: shape without h0 (timed) and with it, then RGLRU_CASES' edge shapes (S =
+#: 1, S = 515 with W = 4,099, S below one chunk, h0 given)
+RGLRU_BWD_CASES = [(4, 1024, 4096, False, True), (4, 1024, 4096, True, False),
+                   (3, 1, 4096, True, False), (2, 515, 4099, True, False),
+                   (1, 300, 32, True, False), (2, 16, 8, True, False)]
+#: (BH, S, hd, initial carry, final-state gradients, timed) for the mLSTM
+#: backward, both dtypes: xlstm's train shape (timed), S = 200 (a padded
+#: tail) with both carries, each carry alone, and MLSTM_CASES' small shapes
+MLSTM_BWD_CASES = [(16, 1024, 1024, False, False, True),
+                   (4, 200, 1024, True, True, False),
+                   (2, 128, 32, True, False, False),
+                   (4, 256, 64, False, True, False),
+                   (1, 64, 128, False, False, False),
+                   (2, 200, 64, True, True, False),
+                   (3, 130, 96, True, False, False),
+                   (2, 64, 8, True, True, False)]
+
+
+def phase_rglru_scan_bwd(torch, np, dev):
+    """The backward kernel (``csrc/rglru_scan_bwd.cu``) against its plain
+    version (``rglru_bwd_plain``, a loop over S in reverse) on the card,
+    float32, dlog_a, db and dh0 within ``ATTN_TOL`` x max(1, largest
+    |plain gradient|), every case twice and bit-equal; timed at the train
+    shape (the plain loop on 3 calls, profiled on 1: the profiler's host
+    cost per recorded operation).  No PyTorch call computes it."""
+    from repro_torch.kernels.ref import rglru_bwd_plain, rglru_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    g = torch.Generator(device=dev).manual_seed(13)
+    main, edge = [], []
+    for b, s, w, with_h0, timed in RGLRU_BWD_CASES:
+        log_a = -torch.rand(b, s, w, generator=g, device=dev) * 0.3
+        bv, dh = (torch.randn(b, s, w, generator=g, device=dev)
+                  for _ in range(2))
+        h0 = (torch.randn(b, w, generator=g, device=dev) if with_h0
+              else None)
+        h = rglru_plain(log_a, bv, h0)
+        got = rglru_scan_bwd(log_a, h, h0, dh)
+        again = rglru_scan_bwd(log_a, h, h0, dh)
+        want = rglru_bwd_plain(log_a, h, h0, dh)
+        torch.cuda.synchronize()
+        if (got[2] is None) != (h0 is None):
+            raise AssertionError(f"rglru_scan_bwd: dh0 at {(b, s, w)} "
+                                 f"(h0 {with_h0})")
+        err, scale = _bwd_err([x for x in got if x is not None],
+                              [x for x in want if x is not None])
+        _hold("rglru_scan_bwd", err, "float32", (b, s, w, with_h0), scale)
+        if not all(x is None or torch.equal(x, y)
+                   for x, y in zip(got, again)):
+            raise AssertionError(f"rglru_scan_bwd: two calls at {(b, s, w)}"
+                                 f" (h0 {with_h0}) differ")
+        case = {"B": b, "S": s, "W": w, "h0": with_h0, "max_abs_err": err,
+                "scale": scale, "bit_equal": True}
+        del got, again, want
+        if not timed:
+            edge.append(case)
+            continue
+        # log_a, h and dh read; dlog_a and db written (and h0, dh0)
+        n_bytes = 4 * (5 * b * s * w + (2 * b * w if with_h0 else 0))
+        bound, by = attn_bound_ms(n_bytes, 5 * b * s * w, "float32")
+        main.append({**case, **_timings(
+            torch, lambda: rglru_scan_bwd(log_a, h, h0, dh),
+            lambda: rglru_bwd_plain(log_a, h, h0, dh), RGLRU_BWD_KERNELS,
+            10, plain_iters=1), "bound_ms": bound, "bound_by": by,
+            "bytes": n_bytes, "library_ms": None})
+    emit("rglru_scan_bwd", tolerance=ATTN_TOL["float32"],
+         tolerance_relative_to="max(1, largest |plain gradient|)",
+         shapes=main, edge=edge)
+    return main[0]
+
+
+def mlstm_bwd_work(bh: int, s: int, hd: int, elt: int, carry_in: bool,
+                   final: bool):
+    """(bytes, FLOPs) of one mLSTM backward call: q, k, v and dh read and
+    dq, dk, dv written in the model dtype, the gates read and their
+    gradients written, the initial carry read and its gradient written
+    where given, the final carry's gradient read where given, and the
+    chunk-start states the design stores (written and read once); about
+    10 hd^2 + 10 L hd FLOPs per token and head."""
+    from repro_torch.kernels.mlstm_kernel import CHUNK
+    carry = 4 * bh * (hd * hd + hd)
+    states = 4 * bh * (-(-s // CHUNK)) * hd * hd
+    n_bytes = (elt * 7 * bh * s * hd + 4 * 4 * bh * s
+               + carry * ((2 if carry_in else 1) + (1 if final else 0))
+               + 2 * states)
+    return n_bytes, bh * s * (10 * hd * hd + 10 * CHUNK * hd)
+
+
+def phase_mlstm_chunkwise_bwd(torch, np, dev):
+    """The backward kernel (``csrc/mlstm_kernel_bwd.cu``, float32 sums on
+    the CUDA cores for both dtypes) against its plain version
+    (``mlstm_chunkwise_bwd_plain``) on the card: dq, dk, dv (in q's
+    dtype), di_raw, df_raw, dc0 and dn0 within ``ATTN_TOL`` of the dtype
+    x max(1, largest |plain gradient|), every case twice and bit-equal,
+    an ``i_raw`` above the cap passing no gradient; timed at xlstm's train
+    shape.  The bound is at the float32 CUDA-core peak (the route that
+    runs) with the stored states' bytes.  No PyTorch call computes it."""
+    from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise_bwd
+    from repro_torch.kernels.ref import I_CAP, mlstm_chunkwise_bwd_plain
+    g = torch.Generator(device=dev).manual_seed(14)
+    main, edge = [], []
+
+    def flat(out):
+        return [x for part in out for x in part]
+    for dt in (torch.bfloat16, torch.float32):
+        dname = _dname(torch, dt)
+        for bh, s, hd, carry, final, timed in MLSTM_BWD_CASES:
+            q, k, v, dh = (torch.randn(bh, s, hd, generator=g, device=dev)
+                           .mul(0.3).to(dt) for _ in range(4))
+            ig = torch.randn(bh, s, generator=g, device=dev)
+            ig[0, s // 2] = I_CAP + 1.5
+            fg = torch.randn(bh, s, generator=g, device=dev) + 2.0
+            c0, n0, dc, dn = (
+                torch.randn(*shape, generator=g, device=dev) * 0.1 if on
+                else None
+                for on, shape in ((carry, (bh, hd, hd)), (carry, (bh, hd)),
+                                  (final, (bh, hd, hd)), (final, (bh, hd))))
+            args = (q, k, v, ig, fg, c0, n0, dh, dc, dn)
+            got = flat(mlstm_chunkwise_bwd(*args))
+            again = flat(mlstm_chunkwise_bwd(*args))
+            want = flat(mlstm_chunkwise_bwd_plain(*args))
+            torch.cuda.synchronize()
+            errs = {}
+            for part, a, w in zip(("dq", "dk", "dv", "di_raw", "df_raw",
+                                   "dc0", "dn0"), got, want):
+                err, scale = _err(a, w), float(w.float().abs().max())
+                _hold("mlstm_chunkwise_bwd", err, dname,
+                      (bh, s, hd, carry, final, part), scale)
+                errs[part] = err
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"mlstm_chunkwise_bwd: two calls at "
+                                     f"{(bh, s, hd)} ({dname}) differ")
+            if float(got[3][0, s // 2]) != 0.0:
+                raise AssertionError("mlstm_chunkwise_bwd: di_raw above the "
+                                     "cap is not 0")
+            case = {"dtype": dname, "BH": bh, "S": s, "hd": hd,
+                    "carry_in": carry, "final_grad": final,
+                    "kernel": mlstm_chunkwise_bwd.source,
+                    "max_abs_err": max(errs.values()), "errs": errs,
+                    "bit_equal": True}
+            del got, again, want
+            if not timed:
+                edge.append(case)
+                continue
+            n_bytes, flops = mlstm_bwd_work(bh, s, hd, q.element_size(),
+                                            carry, final)
+            bound, by = attn_bound_ms(n_bytes, flops, "float32")
+            main.append({**case, **_timings(
+                torch, lambda: mlstm_chunkwise_bwd(*args),
+                lambda: mlstm_chunkwise_bwd_plain(*args), MLSTM_BWD_KERNELS,
+                5, plain_iters=3),
+                "bound_ms": bound, "bound_by": by, "flops": flops,
+                "bytes": n_bytes, "library_ms": None,
+                "bf16_tensor_core_bound_ms": flops / PEAK_FLOPS["bfloat16"]
+                * 1e3})
+            del args, q, k, v, dh
+            torch.cuda.empty_cache()
+    emit("mlstm_chunkwise_bwd", tolerance=ATTN_TOL,
+         tolerance_relative_to="max(1, largest |plain gradient|)",
+         shapes=main, edge=edge)
+    return main[0]
+
+
 # ------------------------------------------------------- the serving path
 
 
@@ -1539,12 +1769,15 @@ def _serving_wrappers() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_flat)
-    from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise
-    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.mlstm_kernel import (mlstm_chunkwise,
+                                                  mlstm_chunkwise_bwd)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
     return {"flash_attention": flash_attention_flat,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention,
-            "rglru_scan": rglru_scan, "mlstm_chunkwise": mlstm_chunkwise}
+            "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd,
+            "mlstm_chunkwise": mlstm_chunkwise,
+            "mlstm_chunkwise_bwd": mlstm_chunkwise_bwd}
 
 
 def _kernel_counts():
@@ -1562,7 +1795,7 @@ def expected_launches(cfg, decode_steps: int) -> dict:
     decode step (the encoder-decoder: its encoder layers, and twice per
     decoder layer, self and cross); the recurrences once per recurrent
     layer in prefill (decode steps them in plain tensor ops); no
-    attention backward."""
+    backward kernel."""
     n_attn = n_rec = n_mlstm = 0
     if cfg.family in ("dense", "moe", "vlm"):
         n_attn = cfg.n_layers
@@ -1572,7 +1805,8 @@ def expected_launches(cfg, decode_steps: int) -> dict:
         return {"flash_attention": (cfg.n_enc_layers or cfg.n_layers)
                 + 2 * cfg.n_layers, "flash_attention_bwd": 0,
                 "decode_attention": 2 * cfg.n_layers * decode_steps,
-                "rglru_scan": 0, "mlstm_chunkwise": 0}
+                "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm_chunkwise": 0,
+                "mlstm_chunkwise_bwd": 0}
     elif cfg.family == "rglru":
         from repro_torch.models.rglru import layer_kinds
         n_attn = layer_kinds(cfg).count("attn")
@@ -1582,48 +1816,59 @@ def expected_launches(cfg, decode_steps: int) -> dict:
         n_mlstm = sum(not is_slstm(cfg, i) for i in range(cfg.n_layers))
     return {"flash_attention": n_attn, "flash_attention_bwd": 0,
             "decode_attention": n_attn * decode_steps,
-            "rglru_scan": n_rec, "mlstm_chunkwise": n_mlstm}
+            "rglru_scan": n_rec, "rglru_scan_bwd": 0,
+            "mlstm_chunkwise": n_mlstm, "mlstm_chunkwise_bwd": 0}
 
 
 def expected_train_launches(cfg, n_steps: int) -> dict:
     """Each model kernel's launches in ``n_steps`` train steps: every
-    attention call of the forward (one per layer of a dense, MoE or VLM
-    transformer; the encoder-decoder's encoder layers, and two per
-    decoder layer, self and cross) once, again when ``cfg.remat``
-    recomputes its layer in the backward, and its backward once; no
-    decode or recurrent kernel (the recurrent families do not train on
-    the card, ROADMAP A8.2)."""
+    attention and recurrence call of the forward (attention once per
+    layer of a dense, MoE or VLM transformer; the encoder-decoder's
+    encoder layers, and two per decoder layer, self and cross;
+    recurrentgemma's ``rglru_scan`` per recurrent layer and attention per
+    attention layer; xlstm's ``mlstm_chunkwise`` per mLSTM layer) once,
+    again when ``cfg.remat`` recomputes its layer in the backward, and
+    its backward kernel once; no decode kernel."""
+    n_attn = n_rec = n_mlstm = 0
     if cfg.family in ("dense", "moe", "vlm"):
         n_attn = cfg.n_layers
     elif cfg.family == "encdec":
         n_attn = (cfg.n_enc_layers or cfg.n_layers) + 2 * cfg.n_layers
+    elif cfg.family == "rglru":
+        from repro_torch.models.rglru import layer_kinds
+        n_attn = layer_kinds(cfg).count("attn")
+        n_rec = cfg.n_layers - n_attn
+    elif cfg.family == "xlstm":
+        from repro_torch.models.xlstm import is_slstm
+        n_mlstm = sum(not is_slstm(cfg, i) for i in range(cfg.n_layers))
     else:
-        raise ValueError(f"{cfg.name}: the {cfg.family!r} family does not "
-                         f"train on the card")
-    fwd = n_attn * (2 if cfg.remat else 1)
-    return {"flash_attention": n_steps * fwd,
-            "flash_attention_bwd": n_steps * n_attn,
-            "decode_attention": 0, "rglru_scan": 0, "mlstm_chunkwise": 0}
+        raise ValueError(f"{cfg.name}: no train path for the "
+                         f"{cfg.family!r} family")
+    fwd = n_steps * (2 if cfg.remat else 1)
+    return {"flash_attention": fwd * n_attn,
+            "flash_attention_bwd": n_steps * n_attn, "decode_attention": 0,
+            "rglru_scan": fwd * n_rec, "rglru_scan_bwd": n_steps * n_rec,
+            "mlstm_chunkwise": fwd * n_mlstm,
+            "mlstm_chunkwise_bwd": n_steps * n_mlstm}
 
 
-def _device_kernels(prof, launched: dict):
+def _device_kernels(records: dict, launched: dict):
     """({kernel name: device us}, {part: records seen}) of a profile's
-    CUDA kernels.  A kernel whose name contains a key of ``launched``
-    (the port's kernels, by their launch counters over the profiled
-    window) counts as the mean duration of the records the profiler
-    kept times its launches: it keeps only some records of a kernel
-    launched through ctypes."""
-    from torch.autograd import DeviceType
+    device operations (``records``: its :func:`device_records`).  A
+    kernel whose name contains a key of ``launched`` (the port's
+    kernels, by their launch counters over the profiled window) counts
+    as the mean duration of the records the profiler kept times its
+    launches: it keeps only some records of a kernel launched through
+    ctypes."""
     us, seen = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+    for key, (count, t) in records.items():
+        if t <= 0:
             continue
-        t = e.self_device_time_total
         for part, n in launched.items():
-            if part in e.key:
-                seen[part] = seen.get(part, 0) + e.count
-                t = t / e.count * n
-        us[e.key] = t
+            if part in key:
+                seen[part] = seen.get(part, 0) + count
+                t = t / count * n
+        us[key] = t
     return us, seen
 
 
@@ -1632,7 +1877,9 @@ DEVICE_KERNELS = {"flash_attention": FLASH_KERNELS,
                   "flash_attention_bwd": FLASH_BWD_KERNELS,
                   "decode_attention": DECODE_KERNELS,
                   "rglru_scan": RGLRU_KERNELS,
-                  "mlstm_chunkwise": MLSTM_KERNELS}
+                  "rglru_scan_bwd": RGLRU_BWD_KERNELS,
+                  "mlstm_chunkwise": MLSTM_KERNELS,
+                  "mlstm_chunkwise_bwd": MLSTM_BWD_KERNELS}
 
 
 def _launched() -> dict:
@@ -1641,14 +1888,6 @@ def _launched() -> dict:
     counts = _kernel_counts()
     return {name: counts[w] for w, names in DEVICE_KERNELS.items()
             for name in names}
-
-
-def _device_ops(prof) -> int:
-    """How many operations (kernels and copies) a profile saw run on
-    the card."""
-    from torch.autograd import DeviceType
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
 
 
 def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
@@ -1720,7 +1959,7 @@ def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
         srv.generate(prompts, fe)
         torch.cuda.synchronize()
     gen_launched = _launched()
-    by_kernel, gen_seen = _device_kernels(prof, gen_launched)
+    by_kernel, gen_seen = _device_kernels(device_records(prof), gen_launched)
     total = sum(by_kernel.values())
     share = {k: sum(us for n, us in by_kernel.items() if k in n)
              / total for k in gen_launched if gen_launched[k]}
@@ -1740,7 +1979,8 @@ def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dec_launched = _launched()
-    dec, dec_seen = _device_kernels(prof, dec_launched)
+    dec_records = device_records(prof)
+    dec, dec_seen = _device_kernels(dec_records, dec_launched)
     busy_s = sum(dec.values()) / 1e6
     top = sorted(dec.items(), key=lambda kv: -kv[1])[:8]
     med = {k: statistics.median(r[k] for r in runs)
@@ -1757,7 +1997,8 @@ def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
          decode_profiled_steps=n_steps, decode_profiled_wall_s=wall,
          decode_device_busy_s=busy_s,
          decode_device_idle_share=1 - busy_s / wall,
-         decode_step_device_ops=_device_ops(prof) / n_steps,
+         decode_step_device_ops=sum(n for n, _ in dec_records.values())
+         / n_steps,
          decode_kernel_launches=dec_launched,
          decode_kernel_records_seen=dec_seen,
          decode_step_device_ms_by_kernel={
@@ -2016,9 +2257,17 @@ def phase_flash_attention_bwd(torch, np, dev):
             plain = lambda: _bwd_plain(q, k, v, o, do, causal, window)
             q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
-            out = F.scaled_dot_product_attention(q4, k4, v4,
-                                                 is_causal=causal,
-                                                 enable_gqa=True)
+            if window > 0:                  # a boolean band mask
+                qpos = torch.arange(sq, device=dev)[:, None]
+                kpos = torch.arange(sk, device=dev)[None, :]
+                band = (kpos > qpos - window) & (
+                    kpos <= qpos if causal else True)
+                out = F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=band, enable_gqa=True)
+            else:
+                out = F.scaled_dot_product_attention(q4, k4, v4,
+                                                     is_causal=causal,
+                                                     enable_gqa=True)
             do4 = do.transpose(1, 2)
             lib = lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
                                               retain_graph=True)
@@ -2151,7 +2400,8 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
         if _kernel_counts() != want:
             raise AssertionError(f"{phase} profiled step: launches "
                                  f"{_kernel_counts()}, expected {want}")
-        by_kernel, seen = _device_kernels(prof, launched)
+        records = device_records(prof)
+        by_kernel, seen = _device_kernels(records, launched)
         busy_s = sum(by_kernel.values()) / 1e6
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
         by_class = {}
@@ -2190,7 +2440,7 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
          moe_dropped_slots_by_layer=drops,
          profiled_step_wall_s=prof_wall, profiled_step_device_busy_s=busy_s,
          profiled_step_device_idle_share=1 - busy_s / prof_wall,
-         profiled_step_device_ops=_device_ops(prof),
+         profiled_step_device_ops=sum(n for n, _ in records.values()),
          profiled_step_kernel_launches=launched,
          profiled_step_kernel_records_seen=seen,
          profiled_step_device_ms_by_op={k[:80]: us / 1e3 for k, us in top},
@@ -2219,6 +2469,7 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
     from repro_torch.train.step import build_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    host_free = host_bytes_available()
     tol = 1e-4
     n_layers, batch, seq_len, n_steps, peak_lr = spec
     overrides = overrides or {}
@@ -2277,8 +2528,11 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
                                  ("v", oc["v"], oh["v"])):
         errs = []
         for a, c in zip(tree_leaves(a_tree), tree_leaves(c_tree)):
+            # on the card, leaf by leaf: the same float32 differences and
+            # maxima as on the host, without its passes over every leaf
+            c = c.to(a.device)
             scale = max(1.0, float(c.abs().max()))
-            errs.append(float((a.cpu() - c).abs().max()) / scale)
+            errs.append(float((a - c).abs().max()) / scale)
         worst[part] = max(errs)
         if not worst[part] <= tol:
             raise AssertionError(f"{phase}: {part} differ by "
@@ -2290,8 +2544,17 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
          dtype="float32", remat=cfg.remat, batch=batch, seq_len=seq_len,
          frontend_tokens=n_front, steps=rows,
          peak_lr=peak_lr, tolerance=tol, worst_relative_to_scale=worst,
-         launches=counts, seconds=seconds)
+         launches=counts, seconds=seconds,
+         host_bytes_available_before=host_free)
     return counts
+
+
+def host_bytes_available() -> int:
+    """``MemAvailable`` of ``/proc/meminfo``, in bytes."""
+    for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
 def _recorded_phase(torch, dev, record, sim_of, phase: str, check):
@@ -2378,7 +2641,27 @@ def phase_live_colocated(torch, dev):
          replays_equal=["barrier", "async"])
 
 
-def main() -> int:
+#: the kernel phases that ``--phases`` runs alone, after device and build
+KERNEL_PHASES = {"flash_attention": phase_flash_attention,
+                 "flash_attention_bwd": phase_flash_attention_bwd,
+                 "decode_attention": phase_decode_attention,
+                 "rglru_scan": phase_rglru_scan,
+                 "rglru_scan_bwd": phase_rglru_scan_bwd,
+                 "mlstm_chunkwise": phase_mlstm_chunkwise,
+                 "mlstm_chunkwise_bwd": phase_mlstm_chunkwise_bwd}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", type=lambda v: v.split(","), default=[],
+                    help="run only these kernel phases (of "
+                         f"{', '.join(KERNEL_PHASES)}) after device and "
+                         "build, each held to its plain version and "
+                         "timed; prints no kernels line and no ok line")
+    args = ap.parse_args(argv)
+    unknown = [p for p in args.phases if p not in KERNEL_PHASES]
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
     card = use_one_card()
     import numpy as np
     import torch
@@ -2391,6 +2674,10 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_device(torch, card)
     phase_build()
+    if args.phases:
+        for name in args.phases:
+            KERNEL_PHASES[name](torch, np, dev)
+        return 0
     floor = phase_launch_floor(torch, dev)
     ms = phase_minskew(torch, np, dev, floor)
     hr = phase_hub_route(torch, np, dev, floor)
@@ -2404,7 +2691,9 @@ def main() -> int:
     fb = phase_flash_attention_bwd(torch, np, dev)
     da = phase_decode_attention(torch, np, dev)
     rg = phase_rglru_scan(torch, np, dev)
+    rgb = phase_rglru_scan_bwd(torch, np, dev)
     ml = phase_mlstm_chunkwise(torch, np, dev)
+    mlb = phase_mlstm_chunkwise_bwd(torch, np, dev)
     by_path = {"serve": phase_serve(torch, np, dev)}
     phase_serve_parity(torch, np, dev)
     by_path["serve_rglru"] = phase_serve(torch, np, dev, SERVE_RGLRU,
@@ -2427,7 +2716,7 @@ def main() -> int:
     by_path["train"] = phase_train(torch, np, dev)
     by_path["train_parity"] = phase_train_parity(torch, np, dev)
     parity = {fam: rest for fam, *rest in TRAIN_PARITY_FAMILIES}
-    for fam, spec in TRAIN_FAMILIES:
+    for fam, spec in TRAIN_FAMILIES + TRAIN_RECURRENT:
         by_path[f"train_{fam}"] = phase_train(torch, np, dev, spec,
                                               f"train_{fam}")
         arch, pspec, overrides = parity[fam]
@@ -2440,7 +2729,8 @@ def main() -> int:
                  "campaign": campaign_launches[k]}
              for k in ("minskew", "hub_route")}
     for kname in ("flash_attention", "flash_attention_bwd",
-                  "decode_attention", "rglru_scan", "mlstm_chunkwise"):
+                  "decode_attention", "rglru_scan", "rglru_scan_bwd",
+                  "mlstm_chunkwise", "mlstm_chunkwise_bwd"):
         paths[kname] = {p: c[kname] for p, c in by_path.items() if c[kname]}
     kernels = []
     for kname, row, src, tpu in (
@@ -2462,7 +2752,15 @@ def main() -> int:
              "src/repro/kernels/rglru_scan.py:60"),
             ("mlstm_chunkwise", ml,
              f"src/repro_torch/kernels/csrc/{ml['kernel']}",
-             "src/repro/kernels/mlstm_kernel.py:79")):
+             "src/repro/kernels/mlstm_kernel.py:79"),
+            ("rglru_scan_bwd", rgb,
+             "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+             "gradient of src/repro/kernels/rglru_scan.py:60 (the JAX "
+             "package differentiates its jnp version; no Pallas kernel)"),
+            ("mlstm_chunkwise_bwd", mlb,
+             "src/repro_torch/kernels/csrc/mlstm_kernel_bwd.cu",
+             "gradient of src/repro/kernels/mlstm_kernel.py:79 (the JAX "
+             "package differentiates its jnp version; no Pallas kernel)")):
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": tpu,
             "launches": sum(paths[kname].values()),

@@ -31,8 +31,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("minskew", "hub_route", "flash_attention", "flash_attention_sm90",
            "flash_attention_bwd", "flash_attention_bwd_sm90",
-           "decode_attention", "rglru_scan", "mlstm_kernel",
-           "mlstm_kernel_sm90", "launch_floor")
+           "decode_attention", "rglru_scan", "rglru_scan_bwd", "mlstm_kernel",
+           "mlstm_kernel_sm90", "mlstm_kernel_bwd", "launch_floor")
 
 
 class KernelArgumentError(ValueError):
@@ -43,18 +43,27 @@ class KernelArgumentError(ValueError):
     apart."""
 
 
+def grad_wanted(*tensors) -> bool:
+    """Grad mode on and an input (None allowed) that requires grad: where
+    a wrapper goes through its ``torch.autograd.Function``."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_grad(what: str, *tensors) -> None:
     """Raise ``NotImplementedError`` where autograd would differentiate
     through a kernel that has no backward: grad mode on and an input that
     requires grad.  A kernel's output has no ``grad_fn``, so without this
     the gradient of everything upstream would be dropped silently.  For
-    CUDA tensors only: the CPU's plain versions stay differentiable."""
-    import torch
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    CUDA tensors only: the CPU's plain versions stay differentiable.
+    Only ``decode_attention`` has no backward: nothing trains through
+    decode (ROADMAP A8.2 gave the recurrences theirs)."""
+    if grad_wanted(*tensors):
         raise NotImplementedError(
-            f"{what}: no backward kernel on the card yet (ROADMAP A8.2); "
-            f"run under torch.no_grad() or inference_mode, or on the CPU")
+            f"{what}: no backward kernel on the card (nothing trains "
+            f"through it; ROADMAP A8.2); run under torch.no_grad() or "
+            f"inference_mode, or on the CPU")
 
 
 _lock = threading.Lock()

@@ -128,10 +128,6 @@ def uses_sm90_bwd(dtype: torch.dtype, hd: int) -> bool:
             and 8 <= hd <= SM90_BWD_MAX_HD)
 
 
-def _grad_wanted(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
 def check_head_dim(name: str, hd: int) -> None:
     if hd % 8 != 0 or not 8 <= hd <= MAX_HD:
         raise ValueError(f"{name}: head_dim {hd} is not a multiple of 8 "
@@ -190,7 +186,7 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_flat_plain(q, k, v, causal=causal, window=window)
     _on_cuda(q)
-    if _grad_wanted(q, k, v):
+    if _build.grad_wanted(q, k, v):
         raise NotImplementedError(
             "flash_attention_flat has no gradient on the card; call the "
             "(B, S, H, hd) entry point (ops.flash_attention), whose "
@@ -223,7 +219,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Under grad with an input that requires it, the call goes through
     :class:`FlashAttention`, whose backward is :func:`flash_attention_bwd`."""
     _check_bshd(q, k, v)
-    if _grad_wanted(q, k, v):
+    if _build.grad_wanted(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cuda" and q.dtype == torch.bfloat16:
         b, s, h, hd = q.shape

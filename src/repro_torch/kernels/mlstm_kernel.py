@@ -33,14 +33,25 @@ of ``exp(-1e30)`` = 0 and a forget gate of ``sigmoid(1e30)`` = 1,
 which carry the state through unchanged (large finite values, so no
 ``inf - inf`` appears), and drops the padded rows of h.
 
-On a CPU tensor the wrapper computes the plain version at the kernel's
+The gradient, bound through :class:`MlstmChunkwise`, a
+``torch.autograd.Function`` around either forward route that saves only
+its inputs, is :func:`mlstm_chunkwise_bwd`: ``csrc/mlstm_kernel_bwd.cu``,
+float32 sums on the CUDA cores for both dtypes, which rebuilds the
+chunk-start states into a workspace that lives for the call and walks the
+chunks in reverse carrying dC and dn (see its source note).  The JAX
+package differentiates its jnp chunkwise form; it has no backward Pallas
+kernel.  A call on CUDA tensors goes through it when grad mode is on and
+an input requires grad; otherwise (serving) nothing is saved.
+
+On a CPU tensor the wrappers compute the plain versions at the kernel's
 chunk (:func:`mlstm_flat_plain`, over
-:func:`repro_torch.kernels.ref.mlstm_chunkwise_plain`); on a CUDA
-tensor it launches a kernel or raises.  Both paths check dtypes
-and shapes first.  ``mlstm_chunkwise.launches`` counts launches and
-``mlstm_chunkwise.source`` names the source of the last one.  The
-kernels have no backward yet: on a CUDA tensor under grad the wrapper
-raises (ROADMAP A8.2) rather than return an output without a gradient.
+:func:`repro_torch.kernels.ref.mlstm_chunkwise_plain`, through which
+autograd runs; and :func:`repro_torch.kernels.ref.mlstm_chunkwise_bwd_plain`);
+on a CUDA tensor they launch a kernel or raise.  Both paths check dtypes
+and shapes first.  ``mlstm_chunkwise.launches`` and
+``mlstm_chunkwise_bwd.launches`` count launches,
+``mlstm_chunkwise.source`` and ``mlstm_chunkwise_bwd.source`` name the
+source of the last one.
 """
 from __future__ import annotations
 
@@ -52,15 +63,16 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mlstm_chunkwise_plain
+from repro_torch.kernels.ref import (MLSTM_KERNEL_CHUNK, PAD_GATE,
+                                     mlstm_chunkwise_bwd_plain,
+                                     mlstm_chunkwise_plain, pad_tail)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = (torch.float32, torch.bfloat16)
-CHUNK = 64                    # L in csrc/mlstm_kernel{,_sm90}.cu
+CHUNK = MLSTM_KERNEL_CHUNK     # L in csrc/mlstm_kernel{,_sm90,_bwd}.cu
 MAX_HD = 8192
 SM90_MAX_HD = 2816            # mlstm_sm90_max_hd() in csrc/mlstm_kernel_sm90.cu
-PAD_GATE = 1e30               # i_raw = -PAD_GATE, f_raw = +PAD_GATE
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,6 +110,26 @@ def _lib_sm90():
     fn.argtypes = [_P] * 13 + [_I, _I, _I, ctypes.c_double, _P]
     fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd():
+    """The backward's launcher and workspace-size function, set up once;
+    checks that the source's chunk is ``CHUNK``."""
+    lib = _build.load("mlstm_kernel_bwd")
+    lib.mlstm_bwd_chunk_len.argtypes = []
+    lib.mlstm_bwd_chunk_len.restype = _I
+    if lib.mlstm_bwd_chunk_len() != CHUNK:
+        raise RuntimeError(f"mlstm_kernel_bwd.cu's chunk is "
+                           f"{lib.mlstm_bwd_chunk_len()}, the wrapper pads "
+                           f"to {CHUNK}")
+    ws = lib.mlstm_bwd_workspace_floats
+    ws.argtypes = [_I, _I, _I]
+    ws.restype = ctypes.c_longlong
+    fn = lib.mlstm_chunkwise_bwd_launch
+    fn.argtypes = [_P] * 18 + [_I, _I, _I, ctypes.c_double, _I, _P]
+    fn.restype = _I
+    return fn, ws
 
 
 def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
@@ -139,24 +171,6 @@ def _check(q, k, v, i_raw, f_raw, c0, n0):
                          f"1..{MAX_HD}")
 
 
-def pad_tail(q, k, v, i_raw, f_raw, chunk: int = CHUNK):
-    """Pad S up to a multiple of ``chunk`` with steps that leave the
-    carry unchanged: q = k = v = 0, i_raw = -1e30 (input gate 0),
-    f_raw = +1e30 (forget gate 1).  Returns the five tensors (the
-    inputs themselves where S already is a multiple)."""
-    s = q.shape[1]
-    pad = -s % chunk
-    if pad == 0:
-        return q, k, v, i_raw, f_raw
-
-    def ext(t, fill):
-        tail = torch.full((t.shape[0], pad, *t.shape[2:]), fill,
-                          dtype=t.dtype, device=t.device)
-        return torch.cat([t, tail], dim=1)
-    return (ext(q, 0.0), ext(k, 0.0), ext(v, 0.0), ext(i_raw, -PAD_GATE),
-            ext(f_raw, PAD_GATE))
-
-
 def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     i_raw: torch.Tensor, f_raw: torch.Tensor,
                     c0: Optional[torch.Tensor] = None,
@@ -169,7 +183,9 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, i_raw, f_raw, c0, n0)
     if q.device.type == "cpu":
         return mlstm_flat_plain(q, k, v, i_raw, f_raw, c0, n0)
-    _build.refuse_grad("mlstm_chunkwise", q, k, v, i_raw, f_raw, c0, n0)
+    if _build.grad_wanted(q, k, v, i_raw, f_raw, c0, n0):
+        h, c, n = MlstmChunkwise.apply(q, k, v, i_raw, f_raw, c0, n0)
+        return h, (c, n)
     return _launch(*pad_tail(q, k, v, i_raw, f_raw), c0, n0, q.shape[1])
 
 
@@ -242,3 +258,103 @@ def _launch(q, k, v, i_raw, f_raw, c0, n0, s):
 
 mlstm_chunkwise.launches = 0
 mlstm_chunkwise.source = None
+
+
+class MlstmChunkwise(torch.autograd.Function):
+    """:func:`mlstm_chunkwise` on CUDA tensors with its gradient: forward
+    through either forward kernel, backward through
+    :func:`mlstm_chunkwise_bwd`.  Saves the inputs only (the backward
+    rebuilds the states); a final (C, n) that the loss does not use gets
+    no gradient tensor (zeros to the kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_raw, f_raw, c0, n0):
+        ctx.set_materialize_grads(False)
+        h, (c, n) = _launch(*pad_tail(q, k, v, i_raw, f_raw), c0, n0,
+                            q.shape[1])
+        ctx.save_for_backward(q, k, v, i_raw, f_raw, c0, n0)
+        return h, c, n
+
+    @staticmethod
+    def backward(ctx, dh, dc, dn):
+        q, k, v, i_raw, f_raw, c0, n0 = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(q)
+        (dq, dk, dv), (di, df), (dc0, dn0) = mlstm_chunkwise_bwd(
+            q, k, v, i_raw, f_raw, c0, n0, dh, dc, dn)
+        want = ctx.needs_input_grad
+        return (dq, dk, dv, di, df, dc0 if want[5] else None,
+                dn0 if want[6] else None)
+
+
+def mlstm_chunkwise_bwd(q, k, v, i_raw, f_raw, c0, n0, dh, dc=None,
+                        dn=None):
+    """The gradient of :func:`mlstm_chunkwise`: its inputs, dh (BH, S,
+    hd) in q's dtype and the gradients dc (BH, hd, hd), dn (BH, hd) of
+    the final (C, n), float32 or None (zeros) -> ((dq, dk, dv) in q's
+    dtype, (di_raw, df_raw) float32, (dc0, dn0) float32).
+
+    On CPU tensors: :func:`repro_torch.kernels.ref.mlstm_chunkwise_bwd_plain`.
+    On CUDA tensors: ``csrc/mlstm_kernel_bwd.cu`` on the tail-padded
+    inputs (dh padded with zeros), the padded rows dropped; or raise."""
+    _check(q, k, v, i_raw, f_raw, c0, n0)
+    bh, s, hd = q.shape
+    for name, t, dtype, shape in (("dh", dh, q.dtype, (bh, s, hd)),
+                                  ("dc", dc, torch.float32, (bh, hd, hd)),
+                                  ("dn", dn, torch.float32, (bh, hd))):
+        if t is not None and (t.dtype != dtype or t.device != q.device
+                              or tuple(t.shape) != shape):
+            raise ValueError(f"mlstm_chunkwise_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"expected {shape} {dtype} on {q.device}")
+    if q.device.type == "cpu":
+        return mlstm_chunkwise_bwd_plain(q, k, v, i_raw, f_raw, c0, n0, dh,
+                                         dc, dn, chunk=CHUNK)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_chunkwise_bwd: no kernel for device "
+                         f"{q.device}")
+    if bh > 65535:
+        raise ValueError(f"mlstm_chunkwise_bwd: BH={bh} exceeds the launch "
+                         f"grid")
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dc0 = torch.empty((bh, hd, hd), **f32)
+    dn0 = torch.empty((bh, hd), **f32)
+    if bh == 0 or s == 0:
+        return ((torch.empty_like(q), torch.empty_like(k),
+                 torch.empty_like(v)),
+                (torch.empty_like(i_raw), torch.empty_like(f_raw)),
+                (dc0.copy_(dc) if dc is not None else dc0.zero_(),
+                 dn0.copy_(dn) if dn is not None else dn0.zero_()))
+    qp, kp, vp, ip, fp = pad_tail(q, k, v, i_raw, f_raw)
+    sp = qp.shape[1]
+    if sp == s:
+        dhp = dh.contiguous()
+    else:
+        dhp = torch.zeros((bh, sp, hd), dtype=q.dtype, device=dev)
+        dhp[:, :s] = dh
+    dq, dk, dv = (torch.empty_like(qp) for _ in range(3))
+    di, df = torch.empty_like(ip), torch.empty_like(fp)
+    fn, ws_floats = _lib_bwd()
+    ws = torch.empty(ws_floats(bh, sp, hd), **f32)
+    dc, dn = (None if t is None else t.contiguous() for t in (dc, dn))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(ptr(t) for t in (qp, kp, vp, dhp, ip, fp, c0, n0, dc,
+                                    dn, dq, dk, dv, di, df, dc0, dn0, ws)),
+                 bh, sp, hd, 1.0 / math.sqrt(hd),
+                 int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"mlstm_chunkwise_bwd kernel launch failed "
+                           f"(mlstm_kernel_bwd.cu): CUDA error {err}")
+    mlstm_chunkwise_bwd.launches += 1
+    mlstm_chunkwise_bwd.source = "mlstm_kernel_bwd.cu"
+    return ((dq[:, :s], dk[:, :s], dv[:, :s]), (di[:, :s], df[:, :s]),
+            (dc0, dn0))
+
+
+mlstm_chunkwise_bwd.launches = 0
+mlstm_chunkwise_bwd.source = None

@@ -2,8 +2,9 @@
 
 ``minskew_plain``, ``hub_route_plain``, ``attention_flat_plain`` (and
 its gradient ``attention_flat_bwd_plain``), ``decode_attention_plain``,
-``rglru_plain`` and ``mlstm_chunkwise_plain`` compute what the CUDA
-kernels compute, with ordinary tensor ops: the CPU path of every
+``rglru_plain`` and ``mlstm_chunkwise_plain`` (and their gradients
+``rglru_bwd_plain`` and ``mlstm_chunkwise_bwd_plain``) compute what the
+CUDA kernels compute, with ordinary tensor ops: the CPU path of every
 wrapper, and what ``chip_smoke.py`` holds each kernel against on the
 card.  ``minskew_ref``, ``hub_visibility_ref`` and
 ``mlstm_seq_plain`` are the sequential oracles of the JAX package.  The
@@ -21,6 +22,8 @@ import torch
 INF = 2**30          # int32 "no runnable member" / never sentinel
 I_CAP = 8.0          # mLSTM input gate: i = exp(min(i_raw, I_CAP))
 MLSTM_CHUNK = 512    # the JAX model's chunk (models/xlstm.py CHUNK)
+MLSTM_KERNEL_CHUNK = 64  # the CUDA kernels' chunk (kernels/mlstm_kernel.py)
+PAD_GATE = 1e30      # padded mLSTM steps: i_raw = -PAD_GATE, f_raw = +PAD_GATE
 NEG = -(2**30)       # identity start of the max-plus scan
 NEG_INF = -1e30      # masked attention score (not -inf: see below)
 
@@ -142,6 +145,29 @@ def rglru_plain(log_a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def rglru_bwd_plain(log_a: torch.Tensor, h: torch.Tensor, h0,
+                    dh: torch.Tensor):
+    """The gradient of :func:`rglru_plain` from its output ``h``: log_a,
+    h, dh (B, S, W) float32, h0 (B, W) or None -> (dlog_a, db, dh0), dh0
+    None where h0 is.  A float32 loop over S in reverse: ``g_t = dh_t +
+    a_{t+1} g_{t+1}``, ``db = g``, ``dlog_a_t = g_t a_t h_{t-1}`` (h_{-1}
+    = h0, or 0), ``dh0 = a_0 g_0``."""
+    bsz, s, w = log_a.shape
+    a = torch.exp(log_a.float())
+    hf, dhf = h.float(), dh.float()
+    prev = (torch.zeros((bsz, w), dtype=torch.float32, device=log_a.device)
+            if h0 is None else h0.float())
+    db = torch.empty((bsz, s, w), dtype=torch.float32, device=log_a.device)
+    dla = torch.empty_like(db)
+    carry = torch.zeros((bsz, w), dtype=torch.float32, device=log_a.device)
+    for t in range(s - 1, -1, -1):
+        g = carry + dhf[:, t]
+        db[:, t] = g
+        dla[:, t] = g * a[:, t] * (hf[:, t - 1] if t > 0 else prev)
+        carry = a[:, t] * g
+    return dla, db, None if h0 is None else carry
+
+
 # -- mLSTM chunkwise ------------------------------------------------------------
 
 
@@ -196,6 +222,136 @@ def mlstm_chunkwise_plain(q, k, v, i_raw, f_raw, c0=None, n0=None,
     out = torch.cat(hs, dim=1) if hs else q.new_zeros(q.shape,
                                                       dtype=torch.float32)
     return out.to(q.dtype), (c, n)
+
+
+def pad_tail(q, k, v, i_raw, f_raw, chunk: int = MLSTM_KERNEL_CHUNK):
+    """Pad axis 1 (S) of flat (BH, S, ...) mLSTM inputs up to a multiple
+    of ``chunk`` with steps that leave the carry unchanged: q = k = v = 0,
+    i_raw = -1e30 (input gate 0), f_raw = +1e30 (forget gate 1).
+    Returns the five tensors (the inputs themselves where S already is a
+    multiple)."""
+    s = q.shape[1]
+    pad = -s % chunk
+    if pad == 0:
+        return q, k, v, i_raw, f_raw
+
+    def ext(t, fill):
+        tail = torch.full((t.shape[0], pad, *t.shape[2:]), fill,
+                          dtype=t.dtype, device=t.device)
+        return torch.cat([t, tail], dim=1)
+    return (ext(q, 0.0), ext(k, 0.0), ext(v, 0.0), ext(i_raw, -PAD_GATE),
+            ext(f_raw, PAD_GATE))
+
+
+def mlstm_chunkwise_bwd_plain(q, k, v, i_raw, f_raw, c0, n0, dh, dc=None,
+                              dn=None, chunk: int = MLSTM_KERNEL_CHUNK):
+    """The gradient of the chunkwise mLSTM (:func:`mlstm_chunkwise_plain`
+    over flat heads, tail-padded by :func:`pad_tail`) at ``chunk``, as
+    explicit formulas in float32: what ``csrc/mlstm_kernel_bwd.cu``
+    computes.
+
+    q, k, v, dh (BH, S, hd); i_raw, f_raw (BH, S) float32; c0 (BH, hd,
+    hd) and n0 (BH, hd) float32 or None (zeros); dc, dn the gradients of
+    the final (C, n) or None (zeros).  Returns (dq, dk, dv) in q's dtype,
+    (di_raw, df_raw) float32 and (dc0, dn0) float32.
+
+    Per chunk, with the chunk-start state (C, n) recomputed by a forward
+    walk, ``m = max(|den|, 1)`` and the chunk-end gradient (dC', dn'):
+    ``dh.out = qd.(C dh) + sum_j S_ij (v_j.dh_i)``; ``dden = -dh.out /
+    m^2 sign(den)`` where ``|den| >= 1``, else 0; ``dS_ij = v_j.dh_i / m_i
+    + dden_i``; ``dq = scale e^a (C dh / m + n dden) + dS~ k``, ``dk =
+    dS~^T q + w (dC' v + dn')``, ``dv = (S / m)^T dh + w dC'^T k`` (dS~ =
+    dS scale e^{a_i - a_j + li_j}, w_j = e^{a_L - a_j + li_j}); the carry
+    ``dC = e^{a_L} dC' + qd^T (dh / m)``, ``dn = e^{a_L} dn' + qd^T
+    dden``.  The gates through their exponents: ``G = dS S`` gives a_i
+    its row sums less its column sums, li_j its column sums; ``r_i =
+    qd.(C dh) / m + (qd.n) dden`` goes to a_i; ``E_j = w_j k_j.(dC' v_j +
+    dn')`` to a_L and li_j, less to a_j; ``e^{a_L} (<dC', C> + dn'.n)`` to
+    a_L; then a reverse cumsum within the chunk gives log f, ``df_raw =
+    dlog f sigmoid(-f_raw)`` and ``di_raw = dli`` where ``i_raw <=
+    I_CAP`` (0 above it).  Padded rows are dropped."""
+    bh, s, hd = q.shape
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    qp, kp, vp, ip, fp = pad_tail(q, k, v, i_raw, f_raw, chunk)
+    sp = qp.shape[1]
+    nc = sp // chunk
+    dhp = torch.zeros((bh, sp, hd), **f32)
+    dhp[:, :s] = dh.float()
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf = qp.float(), kp.float(), vp.float()
+    li = torch.clamp(ip.float(), max=I_CAP).view(bh, nc, chunk)
+    lf = torch.nn.functional.logsigmoid(fp.float()).view(bh, nc, chunk)
+    a = torch.cumsum(lf, dim=2)                           # (BH, nc, L)
+    a_l = a[:, :, -1:]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=dev))
+    # the chunk-start states, by a forward walk
+    c = torch.zeros((bh, hd, hd), **f32) if c0 is None else c0.float()
+    n = torch.zeros((bh, hd), **f32) if n0 is None else n0.float()
+    cs, ns = [], []
+    for ci in range(nc):
+        cs.append(c)
+        ns.append(n)
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        wc = torch.exp(a_l[:, ci] - a[:, ci] + li[:, ci])  # (BH, L)
+        kw = kf[:, sl] * wc[..., None]
+        decay = torch.exp(a_l[:, ci])                      # (BH, 1)
+        c = c * decay[..., None] + torch.einsum("bld,ble->bde", kw, vf[:, sl])
+        n = n * decay + kw.sum(dim=1)
+    dq = torch.zeros((bh, sp, hd), **f32)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    da = torch.zeros((bh, nc, chunk), **f32)
+    dli = torch.zeros_like(da)
+    dcc = torch.zeros((bh, hd, hd), **f32) if dc is None else dc.float()
+    dnc = torch.zeros((bh, hd), **f32) if dn is None else dn.float()
+    for ci in range(nc - 1, -1, -1):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        qi, ki, vi, dhi = qf[:, sl], kf[:, sl], vf[:, sl], dhp[:, sl]
+        ai, lii, al = a[:, ci], li[:, ci], a_l[:, ci]      # (BH, L), (BH, 1)
+        c, n = cs[ci], ns[ci]
+        qd = qi * (scale * torch.exp(ai))[..., None]
+        expo = ai[:, :, None] - ai[:, None, :] + lii[:, None, :]
+        sc = torch.where(mask, torch.einsum("bid,bjd->bij", qi, ki) * scale
+                         * torch.exp(torch.where(mask, expo, 0.0)), 0.0)
+        den_inter = torch.einsum("bid,bd->bi", qd, n)
+        den = den_inter + sc.sum(dim=-1)
+        m = torch.clamp(den.abs(), min=1.0)
+        u = torch.einsum("bde,bie->bid", c, dhi)           # C dh_i
+        x = (qd * u).sum(dim=-1)
+        vdh = torch.einsum("bie,bje->bij", dhi, vi)        # dh_i . v_j
+        dho = x + (sc * vdh).sum(dim=-1)                   # dh_i . out_i
+        dden = torch.where(den.abs() >= 1.0,
+                           -dho / m.square() * torch.sign(den), 0.0)
+        ds = torch.where(mask, vdh / m[..., None] + dden[..., None], 0.0)
+        g = ds * sc
+        dst = torch.where(mask, ds * scale * torch.exp(
+            torch.where(mask, expo, 0.0)), 0.0)
+        wc = torch.exp(al - ai + lii)                      # (BH, L)
+        y = torch.einsum("bde,bje->bjd", dcc, vi) + dnc[:, None]
+        z = torch.einsum("bde,bjd->bje", dcc, ki)
+        e = wc * (ki * y).sum(dim=-1)                      # (BH, L)
+        decay = torch.exp(al)                              # (BH, 1)
+        dd = decay[:, 0] * ((dcc * c).sum(dim=(1, 2)) + (dnc * n).sum(-1))
+        dq[:, sl] = (scale * torch.exp(ai))[..., None] * (
+            u / m[..., None] + n[:, None] * dden[..., None]) \
+            + torch.einsum("bij,bjd->bid", dst, ki)
+        dk[:, sl] = torch.einsum("bij,bid->bjd", dst, qi) + wc[..., None] * y
+        dv[:, sl] = torch.einsum("bij,bie->bje", sc / m[..., None], dhi) \
+            + wc[..., None] * z
+        r = x / m + den_inter * dden
+        da[:, ci] = g.sum(dim=2) - g.sum(dim=1) + r - e
+        da[:, ci, -1] += e.sum(dim=-1) + dd
+        dli[:, ci] = g.sum(dim=1) + e
+        dcc = dcc * decay[..., None] + torch.einsum(
+            "bid,bie->bde", qd, dhi / m[..., None])
+        dnc = dnc * decay + (qd * dden[..., None]).sum(dim=1)
+    dlf = torch.flip(torch.cumsum(torch.flip(da, [2]), dim=2), [2])
+    df_raw = (dlf.reshape(bh, sp) * torch.sigmoid(-fp.float()))[:, :s]
+    di_raw = torch.where(ip.float() <= I_CAP, dli.reshape(bh, sp), 0.0)
+    return ((dq[:, :s].to(q.dtype), dk[:, :s].to(k.dtype),
+             dv[:, :s].to(v.dtype)), (di_raw[:, :s], df_raw), (dcc, dnc))
 
 
 def mlstm_step_plain(q, k, v, i_raw, f_raw, c, n):

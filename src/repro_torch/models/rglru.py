@@ -235,17 +235,26 @@ def attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend_embeds=None, return_aux: bool = False):
-    """tokens (B, S) -> logits (B, S, V) float32 [+ aux loss 0]."""
+    """tokens (B, S) -> logits (B, S, V) float32 [+ aux loss 0].
+
+    Trainable: under grad, ``cfg.remat`` recomputes each layer in the
+    backward (:func:`common.maybe_remat`; the JAX package remats each
+    (rec, rec, attn) group, which changes no number), and the per-layer
+    parameters are taken by one ``unbind`` of each stacked leaf
+    (:func:`common.unstack`).  On the card both kernels carry their
+    gradients: ``rglru_scan``'s backward kernel and the flash backward."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
-    ri = ai = 0
+    n_rec, n_attn = _counts(cfg)
+    rec = iter(cm.unstack(params["rec"], n_rec))
+    att = iter(cm.unstack(params["attn"], n_attn))
+    rec_layer = cm.maybe_remat(cfg, rec_block)
+    attn_layer = cm.maybe_remat(cfg, attn_block)
     for kind in layer_kinds(cfg):
         if kind == "rec":
-            x, _ = rec_block(cfg, cm.pick(params["rec"], ri), x)
-            ri += 1
+            x, _ = rec_layer(cfg, next(rec), x)
         else:
-            x, _ = attn_block(cfg, cm.pick(params["attn"], ai), x, positions)
-            ai += 1
+            x, _ = attn_layer(cfg, next(att), x, positions)
     logits = cm.final_logits(cfg, params, x)
     if return_aux:
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)

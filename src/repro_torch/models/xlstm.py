@@ -290,16 +290,26 @@ def slstm_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend_embeds=None, return_aux: bool = False):
-    """tokens (B, S) -> logits (B, S, V) float32 [+ aux loss 0]."""
+    """tokens (B, S) -> logits (B, S, V) float32 [+ aux loss 0].
+
+    Trainable: under grad, ``cfg.remat`` recomputes each layer in the
+    backward (:func:`common.maybe_remat`; the JAX package remats each
+    group of mLSTM blocks and its sLSTM block, which changes no number),
+    and the per-layer parameters are taken by one ``unbind`` of each
+    stacked leaf (:func:`common.unstack`).  On the card the mLSTM's
+    gradient is ``mlstm_chunkwise``'s backward kernel; the sLSTM loop has
+    no kernel (ROADMAP B8) and autograd runs through it."""
     x = params["embed"][tokens]
-    mi = si = 0
+    m_ids, s_ids = _block_ids(cfg)
+    mlstm = iter(cm.unstack(params["mlstm"], len(m_ids)))
+    slstm = iter(cm.unstack(params["slstm"], len(s_ids)))
+    m_layer = cm.maybe_remat(cfg, mlstm_block)
+    s_layer = cm.maybe_remat(cfg, slstm_block)
     for li in range(cfg.n_layers):
         if is_slstm(cfg, li):
-            x = slstm_block(cfg, cm.pick(params["slstm"], si), x)
-            si += 1
+            x = s_layer(cfg, next(slstm), x)
         else:
-            x = mlstm_block(cfg, cm.pick(params["mlstm"], mi), x)
-            mi += 1
+            x = m_layer(cfg, next(mlstm), x)
     logits = cm.final_logits(cfg, params, x)
     if return_aux:
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)

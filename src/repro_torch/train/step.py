@@ -3,14 +3,15 @@ gradient accumulation + AdamW.
 
 The returned step is a plain function of (params, opt_state, step_idx,
 batch); nothing is compiled.  It differentiates the loss with autograd
-(attention's gradient is the ``flash_attention`` backward kernel on the
-card) and updates parameters and moments in place
+(on the card the gradients of attention and of the recurrences are the
+``flash_attention``, ``rglru_scan`` and ``mlstm_chunkwise`` backward
+kernels) and updates parameters and moments in place
 (:func:`repro_torch.optim.adamw_update`), the counterpart of the JAX
-step's donated buffers.  Every family trains: dense, MoE (the loss adds
-``router_aux_coef`` times the load-balancing loss, as the JAX step
-does), VLM and encoder-decoder (``frontend_embeds`` in the batch), and
-on the CPU the recurrent families (their kernels raise under grad on the
-card, ROADMAP A8.2).  A leaf that the loss does not reach gets a zero
+step's donated buffers.  Every family trains, on the card and on the
+CPU: dense, MoE (the loss adds ``router_aux_coef`` times the
+load-balancing loss, as the JAX step does), VLM and encoder-decoder
+(``frontend_embeds`` in the batch), and the recurrent families
+(recurrentgemma and xlstm).  A leaf that the loss does not reach gets a zero
 gradient, as ``jax.grad`` gives it, so AdamW still decays it; a loss
 that reaches no leaf raises.
 

@@ -1,9 +1,10 @@
 """The port's kernels and models on the card, against their plain
-versions, and the training path's gradient (the flash backward kernel,
-three train steps against the CPU, the recurrent kernels' raise under
-grad).  Marked ``cuda``: without a CUDA card every test skips
-(decided in the fixture, not at import).  This file imports neither JAX
-nor the JAX package, so it runs on a machine with the card alone:
+versions, and the training path's gradient (the flash and recurrent
+backward kernels, three train steps of each trained family against the
+CPU, decode's raise under grad).  Marked ``cuda``: without a CUDA card
+every test skips (decided in the fixture, not at import).  This file
+imports neither JAX nor the JAX package, so it runs on a machine with
+the card alone:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -103,6 +104,105 @@ def test_mlstm_kernel_vs_plain(dev, dtype, bh, s, hd, carry):
     _close(h, hw, dtype)
     _close(c, cw)
     _close(n, nw)
+
+
+#: S = 1, S off the chunk of 256 with odd W, h0 given and not, and a
+#: chain of 16 chunks
+@pytest.mark.parametrize("b,s,w,with_h0", [(2, 1, 64, True),
+                                           (2, 300, 32, False),
+                                           (2, 515, 4099, True),
+                                           (1, 4096, 256, True)])
+def test_rglru_bwd_kernel_vs_plain(dev, b, s, w, with_h0):
+    """``csrc/rglru_scan_bwd.cu`` against ``ref.rglru_bwd_plain``; a
+    second call gives the same bits."""
+    from repro_torch.kernels.ref import rglru_bwd_plain, rglru_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    log_a, bv, h0 = _rglru_inputs(dev, b, s, w, with_h0)
+    h = rglru_plain(log_a, bv, h0)
+    dh = torch.randn(b, s, w, generator=torch.Generator(device=dev)
+                     .manual_seed(4), device=dev)
+    before = rglru_scan_bwd.launches
+    got = rglru_scan_bwd(log_a, h, h0, dh)
+    assert rglru_scan_bwd.launches == before + 1
+    want = rglru_bwd_plain(log_a, h, h0, dh)
+    assert (got[2] is None) == (h0 is None)
+    for g, wt in zip(got, want):
+        if wt is not None:
+            _close(g, wt)
+    again = rglru_scan_bwd(log_a, h, h0, dh)
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_rglru_bwd_with_a_detached_h0(dev):
+    """A carried h0 that takes no gradient: autograd through
+    ``ops.rglru`` launches the backward kernel once, with h0 as h_{-1}
+    (dlog_a_0 = g_0 a_0 h0), and gives log_a and b the plain version's
+    gradients."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rglru_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    log_a, bv, h0 = _rglru_inputs(dev, 2, 300, 40, True)
+    ins = [t.requires_grad_() for t in (log_a, bv)]
+    dh = torch.randn(2, 300, 40, generator=torch.Generator(device=dev)
+                     .manual_seed(6), device=dev)
+    before = rglru_scan_bwd.launches
+    got = torch.autograd.grad(ops.rglru(log_a, bv, h0), ins, dh)
+    assert rglru_scan_bwd.launches == before + 1
+    want = torch.autograd.grad(rglru_plain(log_a, bv, h0), ins, dh)
+    assert float(want[0][:, 0].abs().max()) > 0
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def _mlstm_bwd_inputs(dev, dtype, bh, s, hd, carry, final, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dh = (torch.randn(bh, s, hd, generator=g, device=dev).mul(0.3)
+                   .to(dtype) for _ in range(4))
+    ig = torch.randn(bh, s, generator=g, device=dev)
+    ig[0, s // 2] = 9.5                     # above the cap: no gradient
+    fg = torch.randn(bh, s, generator=g, device=dev) + 2.0
+    c0, n0, dc, dn = ((torch.randn(*shape, generator=g, device=dev) * 0.1
+                       if on else None)
+                      for on, shape in ((carry, (bh, hd, hd)),
+                                        (carry, (bh, hd)),
+                                        (final, (bh, hd, hd)),
+                                        (final, (bh, hd))))
+    return q, k, v, ig, fg, c0, n0, dh, dc, dn
+
+
+#: (BH, S, hd, initial carry, final-state gradients): S off the chunk of
+#: 64, hd off the tile of 64, the two kinds of carry each alone and
+#: together, and xlstm's head dim
+MLSTM_BWD_SHAPES = [(2, 200, 64, True, True), (3, 128, 32, False, False),
+                    (1, 70, 100, True, False), (2, 64, 8, False, True),
+                    (2, 256, 1024, True, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,hd,carry,final", MLSTM_BWD_SHAPES)
+def test_mlstm_bwd_kernel_vs_plain(dev, dtype, bh, s, hd, carry, final):
+    """``csrc/mlstm_kernel_bwd.cu`` against
+    ``ref.mlstm_chunkwise_bwd_plain`` in both dtypes (each gradient within
+    the dtype's tolerance of its largest |plain value|); a second call
+    gives the same bits."""
+    from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise_bwd
+    from repro_torch.kernels.ref import mlstm_chunkwise_bwd_plain
+    args = _mlstm_bwd_inputs(dev, dtype, bh, s, hd, carry, final)
+    before = mlstm_chunkwise_bwd.launches
+    got = mlstm_chunkwise_bwd(*args)
+    assert mlstm_chunkwise_bwd.launches == before + 1
+    assert mlstm_chunkwise_bwd.source == "mlstm_kernel_bwd.cu"
+    want = mlstm_chunkwise_bwd_plain(*args)
+    parts = ("dq", "dk", "dv", "di_raw", "df_raw", "dc0", "dn0")
+    for part, g, w in zip(parts, [x for gg in got for x in gg],
+                          [x for ww in want for x in ww]):
+        err = float((g.float() - w.float()).abs().max())
+        scale = max(1.0, float(w.float().abs().max()))
+        assert err <= TOL[g.dtype] * scale, (part, err, scale)
+    assert bool((got[1][0][args[3] > 8.0] == 0).all())
+    again = mlstm_chunkwise_bwd(*args)
+    assert all(torch.equal(a, c) for gg, aa in zip(got, again)
+               for a, c in zip(gg, aa))
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_1_3b"])
@@ -377,18 +477,43 @@ def test_flash_autograd_on_strided_views(dev, dtype):
 
 
 def test_kernels_raise_under_grad_on_the_card(dev):
-    """No backward kernel: on CUDA tensors under grad the wrappers raise
-    (ROADMAP A8.2) instead of returning an output without a gradient."""
+    """Under grad on CUDA tensors the recurrences go through their
+    backward kernels (each call of ``ops.rglru`` and ``ops.mlstm`` raises
+    its backward counter by exactly 1, with the plain version's
+    gradients); decode, which nothing trains through, and the flat
+    attention entry point raise instead of returning an output without a
+    gradient."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_flat
-    log_a, bv, _ = _rglru_inputs(dev, 1, 16, 32, False)
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        ops.rglru(log_a, bv.requires_grad_())
-    q, k, v = (torch.randn(1, 64, 2, 16, device=dev, requires_grad=True)
+    from repro_torch.kernels.mlstm_kernel import (mlstm_chunkwise_bwd,
+                                                  mlstm_flat_plain)
+    from repro_torch.kernels.ref import rglru_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    log_a, bv, h0 = _rglru_inputs(dev, 1, 300, 40, True)
+    ins = [t.requires_grad_() for t in (log_a, bv, h0)]
+    dh = torch.randn(1, 300, 40, device=dev)
+    before = rglru_scan_bwd.launches
+    got = torch.autograd.grad(ops.rglru(*ins), ins, dh)
+    assert rglru_scan_bwd.launches == before + 1
+    for g, w in zip(got, torch.autograd.grad(rglru_plain(*ins), ins, dh)):
+        _close(g, w)
+    q, k, v = (torch.randn(1, 100, 2, 16, device=dev, requires_grad=True)
                for _ in range(3))
-    gates = torch.randn(1, 64, 2, device=dev)
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        ops.mlstm(q, k, v, gates, gates)
+    gates = [torch.randn(1, 100, 2, device=dev, requires_grad=True)
+             for _ in range(2)]
+    do = torch.randn(1, 100, 2, 16, device=dev)
+    before = mlstm_chunkwise_bwd.launches
+    got = torch.autograd.grad(ops.mlstm(q, k, v, *gates)[0],
+                              [q, k, v, *gates], do)
+    assert mlstm_chunkwise_bwd.launches == before + 1
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(2, *t.shape[1:2], *t.shape[3:])
+    want = torch.autograd.grad(
+        mlstm_flat_plain(*(flat(t) for t in (q, k, v, *gates)))[0],
+        [q, k, v, *gates], flat(do))
+    for g, w in zip(got, want):
+        _close(g, w)
     cache = torch.randn(2, 32, 2, 16, device=dev)
     with pytest.raises(NotImplementedError, match="A8.2"):
         ops.decode_attention(torch.randn(2, 4, 16, device=dev,
@@ -398,8 +523,10 @@ def test_kernels_raise_under_grad_on_the_card(dev):
     with pytest.raises(NotImplementedError, match="ops.flash_attention"):
         flash_attention_flat(*(t[0].transpose(0, 1).contiguous()
                                for t in (q, k, v)))
-    with torch.no_grad():                   # serving is untouched
-        assert ops.rglru(log_a, bv).shape == log_a.shape
+    with torch.no_grad():                   # serving saves nothing
+        before = rglru_scan_bwd.launches
+        assert ops.rglru(log_a, bv).grad_fn is None
+        assert rglru_scan_bwd.launches == before
 
 
 def test_train_steps_card_vs_cpu(dev):
@@ -421,6 +548,16 @@ def test_family_train_steps_card_vs_cpu(dev, arch):
     _train_card_vs_cpu(dev, arch)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_1_3b"])
+def test_recurrent_train_steps_card_vs_cpu(dev, arch):
+    """The same for the recurrent smoke configs: recurrentgemma's
+    ``rglru_scan`` and attention, xlstm's ``mlstm_chunkwise`` (its sLSTM
+    has no kernel), each forward twice a layer under remat and each
+    backward once; the gradients of every parameter on the card within
+    tolerance of the CPU's."""
+    _train_card_vs_cpu(dev, arch)
+
+
 def _train_card_vs_cpu(dev, arch):
     from repro_torch import configs
     from repro_torch.data import SyntheticLMData
@@ -430,11 +567,27 @@ def _train_card_vs_cpu(dev, arch):
     from repro_torch.models import registry
     from repro_torch.optim import adamw_init
     from repro_torch.optim.adamw import tree_leaves, tree_map
-    from repro_torch.train.step import build_train_step
+    from repro_torch.kernels.mlstm_kernel import (mlstm_chunkwise,
+                                                  mlstm_chunkwise_bwd)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    from repro_torch.train.step import build_train_step, grads_of
     cfg = dataclasses.replace(configs.get_smoke(arch),
                               dtype=torch.float32, remat=True)
     n_attn = cfg.n_layers + (cfg.n_layers + cfg.n_enc_layers
                              if cfg.family == "encdec" else 0)
+    n_rec = n_mlstm = 0
+    if cfg.family == "rglru":
+        from repro_torch.models.rglru import layer_kinds
+        n_attn = layer_kinds(cfg).count("attn")
+        n_rec = cfg.n_layers - n_attn
+    elif cfg.family == "xlstm":
+        from repro_torch.models.xlstm import is_slstm
+        n_attn = 0
+        n_mlstm = sum(not is_slstm(cfg, i) for i in range(cfg.n_layers))
+    # (forward wrapper, backward wrapper, calls a forward)
+    counted = ((flash_attention_flat, flash_attention_bwd, n_attn),
+               (rglru_scan, rglru_scan_bwd, n_rec),
+               (mlstm_chunkwise, mlstm_chunkwise_bwd, n_mlstm))
     params = registry.init(cfg, torch.Generator(device=dev).manual_seed(1),
                            device=dev)
     cpu = tree_map(lambda t: t.cpu(), params)
@@ -442,7 +595,15 @@ def _train_card_vs_cpu(dev, arch):
               "cpu": (cpu, adamw_init(cpu))}
     step = build_train_step(cfg, lr_kwargs=dict(peak_lr=1e-3, warmup=1,
                                                 total=10))
-    fwd, bwd = flash_attention_flat.launches, flash_attention_bwd.launches
+    if n_rec or n_mlstm:                    # every leaf's gradient
+        data = SyntheticLMData(vocab=cfg.vocab, seq_len=100, global_batch=2,
+                               device="cpu").batch(0)
+        got, _ = grads_of(cfg, params, data["tokens"].to(dev),
+                          data["labels"].to(dev), None)
+        want, _ = grads_of(cfg, cpu, data["tokens"], data["labels"], None)
+        for a, c in zip(tree_leaves(got), tree_leaves(want)):
+            _close(a.cpu(), c)
+    before = [(f.launches, b.launches) for f, b, _ in counted]
     for i in range(3):
         out = {}
         for where, d in (("card", dev), ("cpu", "cpu")):
@@ -457,8 +618,8 @@ def _train_card_vs_cpu(dev, arch):
         for key in ("loss", "grad_norm"):
             a, c = float(out["card"][key]), float(out["cpu"][key])
             assert abs(a - c) <= 1e-4 * abs(c), (i, key, a, c)
-    assert flash_attention_flat.launches - fwd == 3 * 2 * n_attn
-    assert flash_attention_bwd.launches - bwd == 3 * n_attn
+    for (f, b, n), (f0, b0) in zip(counted, before):
+        assert (f.launches - f0, b.launches - b0) == (3 * 2 * n, 3 * n), f
     (pc, oc), (ph, oh) = states["card"], states["cpu"]
     for a, c in zip(tree_leaves({"p": pc, "m": oc["m"], "v": oc["v"]}),
                     tree_leaves({"p": ph, "m": oh["m"], "v": oh["v"]})):
@@ -514,18 +675,25 @@ def test_decode_kernel_vs_plain(dev, dtype, b, h, hkv, s, hd, lens):
 INF = 2**30
 
 
-def _device_records(fn, calls=40):
-    """{device record name: count} over ``calls`` calls of ``fn``."""
+def _device_records(fn, calls=40, windows=5):
+    """{device record name: count} over ``calls`` calls of ``fn``.  Now
+    and then the profiler keeps no record in a window, which shows
+    nothing either way, so an empty window is taken again, up to
+    ``windows`` times (as chip_smoke's ``one_device_op``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+        if seen:
+            return seen
+    return seen
 
 
 def _minskew_inputs(dev, v, n, s, seed=0, offset=0):

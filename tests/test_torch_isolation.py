@@ -50,7 +50,8 @@ def test_port_files_exist():
         assert f"repro_torch/{mod}" in names, mod
     for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",
                 "decode_attention.cu", "rglru_scan.cu", "mlstm_kernel.cu",
-                "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu"):
+                "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
+                "rglru_scan_bwd.cu", "mlstm_kernel_bwd.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file()
 

@@ -223,7 +223,8 @@ def test_state_specs():
 def test_recurrent_smoke_models_backward_on_the_cpu(arch):
     """The recurrent families' plain versions stay differentiable on the
     CPU: ``loss.backward()`` gives every parameter a finite gradient (on
-    the card their kernels raise under grad, ROADMAP A8.2)."""
+    the card the kernels' backward kernels carry it; their train steps are
+    held to JAX's in tests/test_torch_train_families.py)."""
     _, tcfg = _cfgs("float32", arch=arch)
     params = treg.init(tcfg, torch.Generator().manual_seed(0), device="cpu")
     batch = TData(vocab=tcfg.vocab, seq_len=24, global_batch=2,

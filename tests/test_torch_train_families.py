@@ -1,12 +1,15 @@
-"""Training the MoE, VLM and encoder-decoder families: the port against
-the JAX package on the CPU.
+"""Training the MoE, VLM, encoder-decoder and recurrent families: the
+port against the JAX package on the CPU.
 
 olmoe_1b_7b and moonshot_v1_16b_a3b (token-choice MoE: the loss adds
 ``router_aux_coef`` times the load-balancing loss), pixtral_12b (patch
-frontend) and seamless_m4t_medium (encoder-decoder over audio frames) on
-their smoke configs, parameters from JAX ``registry.init`` carried by
-``params_from_jax``, the same batches with their frontend embeddings
-(both packages' ``SyntheticLMData`` draw them from one numpy generator):
+frontend), seamless_m4t_medium (encoder-decoder over audio frames),
+recurrentgemma_9b (RG-LRU and windowed attention) and xlstm_1_3b (mLSTM
+and sLSTM; the port remats each layer where the JAX package remats each
+group, which changes no number) on their smoke configs, parameters from
+JAX ``registry.init`` carried by ``params_from_jax``, the same batches
+with their frontend embeddings (both packages' ``SyntheticLMData`` draw
+them from one numpy generator):
 one and three steps of ``build_train_step``, with and without remat,
 against JAX's, at ``tests/test_torch_train.py``'s tolerances (float32:
 loss and ``grad_norm`` 1e-5 relative, parameters and AdamW moments 1e-4 x
@@ -36,6 +39,8 @@ from repro_torch import configs as tconfigs
 from repro_torch.data import SyntheticLMData as TData
 from repro_torch.launch import shapes as tshp
 from repro_torch.models import moe as tmoe
+from repro_torch.models import registry as tregistry
+from repro_torch.models.common import F32
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime import Trainer, TrainerConfig
 from repro_torch.train.step import build_train_step as tbuild
@@ -43,7 +48,7 @@ from repro_torch.train.step import grads_of
 from test_torch_train import LR, TOL, _cfgs, _close_leaves, _rel, _states
 
 ARCHS = ["olmoe_1b_7b", "moonshot_v1_16b_a3b", "pixtral_12b",
-         "seamless_m4t_medium"]
+         "seamless_m4t_medium", "recurrentgemma_9b", "xlstm_1_3b"]
 FRONTEND = ["pixtral_12b", "seamless_m4t_medium"]
 
 
@@ -93,10 +98,14 @@ def test_train_step_matches_jax_float32(arch, n_steps, remat):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_matches_jax_bfloat16(arch):
     tp = _train(arch, "bfloat16", 3)
-    router = tp["layers"]["moe"]["router"] if "layers" in tp and \
-        "moe" in tp["layers"] else None          # float32 in any model
-    assert all(p.dtype == torch.bfloat16 for p in tree_leaves(tp)
-               if p is not router)
+    # bfloat16 but the leaves float32 in any model (``common.F32``: the MoE
+    # router, the recurrent families' gate weights)
+    _, tcfg = _cfgs("bfloat16", False, arch)
+    specs = tree_leaves(tregistry.param_specs(tcfg))
+    assert any(not isinstance(sp, F32) for sp in specs)
+    assert [p.dtype for p in tree_leaves(tp)] == [
+        torch.float32 if isinstance(sp, F32) else torch.bfloat16
+        for sp in specs]
 
 
 def _grads_both(arch: str, tokens: np.ndarray, fe=None, **overrides):
