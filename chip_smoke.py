@@ -63,10 +63,11 @@ One JSON line per phase:
    and through ``ops.flash_attention`` on non-contiguous (B, S, H, hd)
    views;
 11b. flash_attention_bwd — the attention backward kernels vs their plain
-   version (``attention_flat_bwd_plain``): bfloat16 up to hd 128 on the
-   tensor cores (``csrc/flash_attention_bwd_sm90.cu``), float32 and hd
-   256 on the CUDA cores (``csrc/flash_attention_bwd.cu``), each case
-   with the source that ran; at the trainer's shape (B=4, S=1,024, 32/8
+   version (``attention_flat_bwd_plain``): bfloat16 on the tensor cores
+   (``csrc/flash_attention_bwd_sm90.cu``; above hd 128 its columns and
+   query heads split, with a reduction kernel), float32 on the CUDA cores
+   (``csrc/flash_attention_bwd.cu``), each case with the source that ran;
+   at the trainer's shape (B=4, S=1,024, 32/8
    heads, hd 128, causal; bfloat16 and float32, timed beside SDPA's
    backward, two calls bit-equal), at the shapes the other families'
    train steps give it (timed the same way: seamless_m4t_medium's
@@ -77,8 +78,11 @@ One JSON line per phase:
    causal, window 2,048, beside SDPA's backward under a boolean band
    mask), recurrentgemma's window shape (MQA, hd 256, window 2,048) and the
    edge shapes (hd 8/24/40/64/96, Sq < Sk, Sq and Sk off the tiles, GQA
-   8, windows 5 and 40, Sk = 0), and through ``ops.flash_attention``
-   under autograd on non-contiguous views;
+   8, windows 5 and 40, Sk = 0; above hd 128: a binding window at 16/1
+   heads, 6 heads a group split unevenly, hd 192, hd 136 with Sq < Sk,
+   Sk = 0), each row with the head parts of its dk/dv blocks, and
+   through ``ops.flash_attention`` under autograd on non-contiguous
+   views;
 12. decode_attention — the same at the decode shape (B=4, H=32, Hkv=8,
    hd=128, S=1056, ragged lengths), at S=8192, at recurrentgemma's
    ring buffer (S=2,048, MQA, hd 256), at seamless_m4t_medium's self
@@ -224,6 +228,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: order 1); float32 differ only by the order of the float32 sums.  The
 #: recurrences hold it relative to max(1, largest |plain value|).
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: the attention backward's ||got - want|| / ||want||, for each of dq, dk
+#: and dv against its own plain gradient: a wrong or missing tile of small
+#: late rows shows here where the max abs error may hide it (about 2.6e-3
+#: for bf16's roundings at the repo's CPU emulation of the kernel)
+ATTN_BWD_REL_NORM = {"bfloat16": 1e-2, "float32": 1e-4}
 #: timed calls per measurement, after warm-up
 ITERS = 30
 WARMUP = 5
@@ -982,9 +991,11 @@ def phase_check_interval(torch, np, dev, axis, tick: int,
 #: kernel, fp32 flash the CUDA-core one (one launch either way); decode
 #: runs the split kernel and the combine kernel
 FLASH_KERNELS = ("flash_sm90_kernel", "flash_kernel")
-#: the attention backward: the tensor-core pair (bf16 up to hd 128) or the
-#: CUDA-core pair, two kernels a call either way; no name contains another
-FLASH_BWD_KERNELS = ("flash_bwd_sm90_q", "flash_bwd_sm90_kv", "flash_bwd_dq",
+#: the attention backward: the tensor-core kernels (bf16; above hd 128 with
+#: the query heads split, a third, the reduction of the parts) or the
+#: CUDA-core pair (float32); no name contains another
+FLASH_BWD_KERNELS = ("flash_bwd_sm90_q", "flash_bwd_sm90_kv",
+                     "flash_bwd_sm90_reduce", "flash_bwd_dq",
                      "flash_bwd_dkdv")
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 #: (case, B, H, Hkv, Sq, Sk, hd, causal, window, timed): the serving
@@ -1114,8 +1125,11 @@ MLSTM_CASES = [(16, 1024, 1024, False, True, BOTH),
 #: (1,024 queries over 256 frames, non-causal), its encoder (256 frames,
 #: non-causal) and decoder self-attention (hd 64, 16/16 heads), and
 #: olmoe's (16/16 heads, hd 128); pixtral's is the trainer's shape; and
-#: recurrentgemma's train step (16/1 heads at hd 256, window 2,048: the
-#: CUDA-core route, timed beside SDPA's backward under a band mask)
+#: recurrentgemma's train step (16/1 heads at hd 256, window 2,048, timed
+#: beside SDPA's backward under a band mask); then, untimed, the bf16
+#: route above hd 128 (columns and query heads split): hd 256 at 16/1
+#: heads with a binding window, 6 heads a group (split unevenly, 4 parts
+#: on an H100), hd 192, hd 136 with Sq < Sk, and Sk = 0 at hd 256
 FLASH_BWD_CASES = [("train", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                    ("rglru_window", 1, 16, 1, 3072, 3072, 256, True, 2048,
                     False),
@@ -1140,7 +1154,15 @@ FLASH_BWD_CASES = [("train", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                     True),
                    ("olmoe", 4, 16, 16, 1024, 1024, 128, True, 0, True),
                    ("rglru_train", 4, 16, 1, 1024, 1024, 256, True, 2048,
-                    True)]
+                    True),
+                   ("hd256_mqa_window100", 1, 16, 1, 300, 300, 256, True,
+                    100, False),
+                   ("hd256_gqa6", 2, 12, 2, 1024, 1024, 256, True, 0,
+                    False),
+                   ("hd192", 1, 8, 2, 200, 200, 192, True, 0, False),
+                   ("hd136_sq_lt_sk", 1, 4, 2, 70, 300, 136, True, 0,
+                    False),
+                   ("hd256_sk0", 2, 4, 1, 30, 0, 256, True, 0, False)]
 #: the training path: (arch, global batch, sequence length, warm-up steps,
 #: timed steps, layers or None for the config's), full width in bfloat16
 #: with the config's remat
@@ -2188,13 +2210,39 @@ def _bwd_plain(q, k, v, o, do, causal, window):
 
 
 def _bwd_err(got, want) -> tuple:
-    """(max abs error, largest |plain gradient|) over dq, dk, dv."""
+    """(max abs error, largest |plain gradient|) over the gradients."""
     err = scale = 0.0
     for a, w in zip(got, want):
         if w.numel():
             err = max(err, _err(a, w))
             scale = max(scale, float(w.float().abs().max()))
     return err, scale
+
+
+def _hold_bwd(torch, got, want, dtype: str, where) -> tuple:
+    """Holds dq, dk and dv each to its own plain gradient (max abs error
+    within ``ATTN_TOL`` x max(1, its largest |plain value|), and
+    ||got - want|| / ||want|| within ``ATTN_BWD_REL_NORM``), and the max
+    abs error over the three within ``ATTN_TOL`` x max(1, their largest
+    |plain value|).  Returns (max abs error, scale) over the three and
+    each gradient's max abs error, scale and relative norm."""
+    each = {}
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        if not w.numel():
+            continue
+        e, sc = _bwd_err([a], [w])
+        _hold(f"flash_attention_bwd {gname}", e, dtype, where, sc)
+        diff = torch.linalg.vector_norm(a.float() - w.float())
+        norm = float(torch.linalg.vector_norm(w.float()))
+        rel = float(diff) / norm if norm > 0 else float(diff)
+        if not rel <= ATTN_BWD_REL_NORM[dtype]:
+            raise AssertionError(
+                f"flash_attention_bwd {gname} kernel != plain at {where} "
+                f"({dtype}): ||got - want|| / ||want|| {rel}")
+        each[gname] = {"max_abs_err": e, "scale": sc, "rel_norm_err": rel}
+    err, scale = _bwd_err(got, want)
+    _hold("flash_attention_bwd", err, dtype, where, scale)
+    return err, scale, each
 
 
 def _bwd_route(torch, dt, hd) -> str:
@@ -2206,18 +2254,21 @@ def _bwd_route(torch, dt, hd) -> str:
 
 def phase_flash_attention_bwd(torch, np, dev):
     """The attention backward kernels (``csrc/flash_attention_bwd_sm90.cu``
-    for bf16 up to hd 128, ``csrc/flash_attention_bwd.cu`` otherwise)
+    for bf16, ``csrc/flash_attention_bwd.cu`` for float32)
     against their plain version (``attention_flat_bwd_plain``) on the
-    card, within ``ATTN_TOL`` x max(1, largest |plain gradient|), each
-    case on the source its dtype and head dim pick; timed at the
+    card, each gradient on its own (``_hold_bwd``), each case on the
+    source and head parts its dtype and shape pick; timed at the
     trainer's shape beside SDPA's backward (its forward done before the
     timed window); two calls bit-equal; and through ``ops.flash_attention``
     under autograd on non-contiguous (B, S, H, hd) views."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (flash_attention_bshd,
-                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention import (bwd_head_parts,
+                                                     flash_attention_bshd,
+                                                     flash_attention_bwd,
+                                                     uses_sm90_bwd)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(11)
     main, edge = [], []
     for dt in (torch.bfloat16, torch.float32):
@@ -2237,12 +2288,17 @@ def phase_flash_attention_bwd(torch, np, dev):
             if source != _bwd_route(torch, dt, hd):
                 raise AssertionError(f"flash_attention_bwd: {name} "
                                      f"({dname}) ran {source}")
+            # the blocks a group's query heads were split over
+            parts = flash_attention_bwd.head_parts
+            if parts != (bwd_head_parts(b, h, hkv, sk, hd, n_sm)
+                         if uses_sm90_bwd(dt, hd) else 1):
+                raise AssertionError(f"flash_attention_bwd: {name} "
+                                     f"({dname}) ran {parts} head parts")
             again = flash_attention_bwd(q, k, v, o, do, causal=causal,
                                         window=window)
             want = _bwd_plain(q, k, v, o, do, causal, window)
             torch.cuda.synchronize()
-            err, scale = _bwd_err(got, want)
-            _hold("flash_attention_bwd", err, dname, name, scale)
+            err, scale, each = _hold_bwd(torch, got, want, dname, name)
             bit_equal = all(torch.equal(a, c) for a, c in zip(got, again))
             if not bit_equal:
                 raise AssertionError(f"flash_attention_bwd: two calls "
@@ -2250,7 +2306,8 @@ def phase_flash_attention_bwd(torch, np, dev):
             del got, again, want
             if not timed:
                 edge.append({"case": name, "dtype": dname, "source": source,
-                             "max_abs_err": err, "scale": scale})
+                             "head_parts": parts, "max_abs_err": err,
+                             "scale": scale, "by_gradient": each})
                 continue
             kern = lambda: flash_attention_bwd(q, k, v, o, do, causal=causal,
                                                window=window)
@@ -2279,8 +2336,9 @@ def phase_flash_attention_bwd(torch, np, dev):
             bound, by = attn_bound_ms(n_bytes, flops, dname)
             main.append({
                 "case": name, "dtype": dname, "source": source, "B": b,
-                "H": h, "Hkv": hkv, "S": sq, "hd": hd, "max_abs_err": err,
-                "scale": scale, "bit_equal": bit_equal,
+                "H": h, "Hkv": hkv, "S": sq, "hd": hd, "head_parts": parts,
+                "max_abs_err": err,
+                "scale": scale, "by_gradient": each, "bit_equal": bit_equal,
                 **_timings(torch, kern, plain, FLASH_BWD_KERNELS, 10),
                 **_library(torch, lib, 10),
                 "library": "SDPA backward (torch.autograd.grad of "
@@ -2306,14 +2364,16 @@ def phase_flash_attention_bwd(torch, np, dev):
         want = _bwd_plain(q.detach(), k.detach(), v.detach(), o.detach(),
                           do, True, 40)
         torch.cuda.synchronize()
-        err, scale = _bwd_err([gx], [torch.cat(want, dim=2)])
-        _hold("flash_attention_bwd", err, _dname(torch, dt), "strided",
-              scale)
+        got = (gx[:, :, :h], gx[:, :, h:h + hkv], gx[:, :, h + hkv:])
+        err, scale, _ = _hold_bwd(torch, got, want, _dname(torch, dt),
+                                  "strided")
         strided.append({"view": "fused", "dtype": _dname(torch, dt),
                         "source": source, "contiguous": q.is_contiguous(),
                         "max_abs_err": err})
     emit("flash_attention_bwd", tolerance=ATTN_TOL,
-         tolerance_relative_to="max(1, largest |plain gradient|)",
+         tolerance_relative_to="max(1, largest |plain value|), of each "
+                               "gradient and of the three",
+         rel_norm_limit=ATTN_BWD_REL_NORM,
          shapes=main, edge=edge, strided=strided)
     return main[0]
 

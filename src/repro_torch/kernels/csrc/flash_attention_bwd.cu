@@ -1,6 +1,13 @@
 // The gradient of blockwise (flash) attention for Hopper (sm_90a), float32
 // FMAs on the CUDA cores, bfloat16 or float32 tensors.
 //
+// Who calls it.  The wrapper (repro_torch.kernels.flash_attention) routes
+// float32 here, since the parity runs need float32 arithmetic (TF32 on the
+// tensor cores would change it); every bf16 call goes to
+// flash_attention_bwd_sm90.cu.  Its bf16 mode stays for
+// tools/flash_bwd_check.py, which times it as the first design beside the
+// tensor-core kernels.
+//
 // What it replaces.  The JAX package has no backward Pallas kernel: its
 // models call the jnp attention (src/repro/models/attention.py:40) and
 // jax.grad differentiates that.  This kernel computes that gradient for the

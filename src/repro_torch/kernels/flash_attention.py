@@ -25,15 +25,19 @@ The gradient, bound through :class:`FlashAttention`, a
 :func:`flash_attention_bwd`; two sources, chosen by dtype and head dim
 only (:func:`uses_sm90_bwd`; see each source's head comment):
 
-- bfloat16 with hd a multiple of 8 up to ``SM90_BWD_MAX_HD`` (128):
+- bfloat16 with hd a multiple of 8 up to ``SM90_BWD_MAX_HD`` (256):
   ``csrc/flash_attention_bwd_sm90.cu``, every product on the tensor cores
   (``wgmma``) with its tiles loaded by TMA through the tensors' strides;
-- float32, and bfloat16 above hd 128: ``csrc/flash_attention_bwd.cu``,
-  float32 FMAs on the CUDA cores.
+  above hd 128 a block's two consumers split the head-dim columns, and a
+  group's query heads are split over :func:`bwd_head_parts` blocks whose
+  float32 partial dk and dv a third kernel sums in a fixed order;
+- float32: ``csrc/flash_attention_bwd.cu``, float32 FMAs on the CUDA
+  cores, which keeps the float32 arithmetic of the parity runs.
 
-Each is two deterministic kernels (dq, then dk and dv), no atomics.
+Each is deterministic (dq, then dk and dv), no atomics.
 ``flash_attention_bwd.source`` names the source of the last call that
-launched one.  The (B, S, H, hd) entry point goes through it when grad
+launched one, ``flash_attention_bwd.head_parts`` the head parts it
+launched with (1 on the float32 source).  The (B, S, H, hd) entry point goes through it when grad
 mode is on and an input requires grad;
 otherwise (serving, under ``torch.inference_mode``) nothing is saved and
 the launches are the forward's alone.  The flat entry point has no
@@ -66,10 +70,12 @@ _L = ctypes.c_longlong
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HD = 256
 BQ = 64                       # query rows per block (both kernels)
-BWD_SM90_ROWS = 128           # query rows a block of the bf16 backward's dq
+BWD_SM90_ROWS = 128           # the bf16 backward's lse/D scratch unit
 MAX_GRID_YZ = 65535
 ERR_ENCODE = 20000            # csrc/flash_attention_sm90*.cu: + a CUresult
-SM90_BWD_MAX_HD = 128         # csrc/flash_attention_bwd_sm90.cu
+SM90_BWD_MAX_HD = 256         # csrc/flash_attention_bwd_sm90.cu
+SM90_BWD_WIDE_HD = 128        # above it: 64-key blocks, heads split
+SM90_BWD_WIDE_KEYS = 64       # keys a dk/dv block owns above that
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,27 +111,40 @@ def _lib_bwd():
 @functools.lru_cache(maxsize=None)
 def _lib_bwd_sm90():
     """The bfloat16 tensor-core backward's launcher, set up once; checks
-    that the source's block of query rows is the scratch's unit."""
+    that the source's unit of the lse and D scratch is the wrapper's."""
     lib = _build.load("flash_attention_bwd_sm90")
     lib.flash_attention_bwd_sm90_rows.restype = _I
     rows = lib.flash_attention_bwd_sm90_rows()
     if rows != BWD_SM90_ROWS:
-        raise RuntimeError(f"csrc/flash_attention_bwd_sm90.cu covers {rows} "
-                           f"query rows a block, the wrapper expects "
-                           f"{BWD_SM90_ROWS}")
+        raise RuntimeError(f"csrc/flash_attention_bwd_sm90.cu pads the "
+                           f"scratch to {rows} query rows, the wrapper "
+                           f"expects {BWD_SM90_ROWS}")
     fn = lib.flash_attention_bwd_sm90_launch
-    fn.argtypes = [*([_P] * 10), *([_L] * 24), *([_I] * 9), ctypes.c_double,
-                   _P]
+    fn.argtypes = [*([_P] * 11), *([_L] * 24), *([_I] * 10),
+                   ctypes.c_double, _P]
     fn.restype = _I
     return fn
 
 
 def uses_sm90_bwd(dtype: torch.dtype, hd: int) -> bool:
     """Whether a CUDA call at this dtype and head dim runs
-    ``csrc/flash_attention_bwd_sm90.cu`` (else
-    ``csrc/flash_attention_bwd.cu``)."""
+    ``csrc/flash_attention_bwd_sm90.cu`` (bf16 at every head dim the
+    forward takes) or ``csrc/flash_attention_bwd.cu`` (float32)."""
     return (dtype == torch.bfloat16 and hd % 8 == 0
             and 8 <= hd <= SM90_BWD_MAX_HD)
+
+
+def bwd_head_parts(b: int, h: int, hkv: int, sk: int, hd: int,
+                   n_sm: int) -> int:
+    """The blocks over which ``csrc/flash_attention_bwd_sm90.cu`` splits
+    each group's query heads for dk and dv (the rule of its head
+    comment): 1 up to hd 128 and at Sk = 0; above, with ``base`` = Hkv B
+    ceil(Sk / 64) blocks, round(2 ``n_sm`` / base) clamped to 1 .. H /
+    Hkv, about two blocks an SM."""
+    if hd <= SM90_BWD_WIDE_HD or sk == 0:
+        return 1
+    base = hkv * b * -(-sk // SM90_BWD_WIDE_KEYS)
+    return max(1, min(h // hkv, (2 * n_sm + base // 2) // base))
 
 
 def check_head_dim(name: str, hd: int) -> None:
@@ -245,6 +264,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (the head split's rule)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _on_cuda(q):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
@@ -332,10 +357,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On CPU tensors: :func:`repro_torch.kernels.ref.attention_flat_bwd_plain`
     on flat copies.  On CUDA tensors: ``csrc/flash_attention_bwd_sm90.cu``
-    where :func:`uses_sm90_bwd` says so, through the tensors' strides (a
+    for bfloat16 (:func:`uses_sm90_bwd`), through the tensors' strides (a
     tensor TMA cannot read in place is first copied, as the forward
-    does), else ``csrc/flash_attention_bwd.cu`` (a tensor whose innermost
-    stride is not 1 is first copied); or raise."""
+    does), ``csrc/flash_attention_bwd.cu`` for float32 (a tensor whose
+    innermost stride is not 1 is first copied); or raise."""
     _check_bshd(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -364,28 +389,38 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     if uses_sm90_bwd(q.dtype, hd):
         source = "flash_attention_bwd_sm90.cu"
-        launched = _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window)
+        parts = _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window)
     else:
         source = "flash_attention_bwd.cu"
-        launched = _bwd_cuda_cores(q, k, v, o, do, dq, dk, dv, causal,
-                                   window)
-    if launched:
+        parts = int(_bwd_cuda_cores(q, k, v, o, do, dq, dk, dv, causal,
+                                    window))
+    if parts:
         flash_attention_bwd.launches += 1
         flash_attention_bwd.source = source
+        flash_attention_bwd.head_parts = parts
     return dq, dk, dv
 
 
-def _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window) -> bool:
+def _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window,
+              parts: int | None = None) -> int:
     """``csrc/flash_attention_bwd_sm90.cu`` into dq, dk, dv (bf16, hd a
-    multiple of 8 up to 128); False where there was nothing to launch."""
+    multiple of 8 up to 256); returns the head parts it launched with
+    (``parts``, or :func:`bwd_head_parts`' where None), 0 where there
+    was nothing to launch.  Above hd 128 with the heads split, the
+    float32 partials of dk and dv go to a workspace allocated here for
+    the call."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if sq == 0 and sk == 0:
-        return False
+        return 0
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     sq_pad = -(-sq // BWD_SM90_ROWS) * BWD_SM90_ROWS
     lse = torch.empty((b, h, sq_pad), dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
+    if parts is None:
+        parts = bwd_head_parts(b, h, hkv, sk, hd, _sm_count(q.device))
+    ws = torch.empty((2 * parts * b * sk * hkv * hd if parts > 1 else 0,),
+                     dtype=torch.float32, device=q.device)
     strides = [st for t in (q, k, v, o, do, dq, dk, dv)
                for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
@@ -393,14 +428,15 @@ def _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window) -> bool:
         err = _lib_bwd_sm90()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), *strides, b, h, hkv, sq, sq_pad,
-            sk, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream)
+            lse.data_ptr(), dsum.data_ptr(), ws.data_ptr() if parts > 1
+            else None, *strides, b, h, hkv, sq, sq_pad, sk, hd, int(causal),
+            int(window), parts, 1.0 / math.sqrt(hd), stream)
     if err != 0:
         what = (f"tensor map refused, CUresult {err - ERR_ENCODE}"
                 if err >= ERR_ENCODE else f"CUDA error {err}")
         raise RuntimeError(f"flash_attention_bwd kernel launch failed "
                            f"(flash_attention_bwd_sm90.cu): {what}")
-    return True
+    return parts
 
 
 def _bwd_cuda_cores(q, k, v, o, do, dq, dk, dv, causal, window) -> bool:
@@ -430,3 +466,4 @@ def _bwd_cuda_cores(q, k, v, o, do, dq, dk, dv, causal, window) -> bool:
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.source = None
+flash_attention_bwd.head_parts = None

@@ -401,9 +401,10 @@ def test_flash_bwd_kernel_vs_plain(dev, dtype, b, h, hkv, sq, sk, hd,
 
 
 def _bwd_source(dtype, hd):
-    """The source the backward's route table picks: bf16 up to hd 128 on
-    the tensor cores, the rest on the CUDA cores."""
-    if dtype == torch.bfloat16 and hd <= 128:
+    """The source the backward's route table (``uses_sm90_bwd``) picks:
+    bf16 on the tensor cores, float32 on the CUDA cores."""
+    from repro_torch.kernels.flash_attention import uses_sm90_bwd
+    if uses_sm90_bwd(dtype, hd):
         return "flash_attention_bwd_sm90.cu"
     return "flash_attention_bwd.cu"
 
@@ -411,7 +412,10 @@ def _bwd_source(dtype, hd):
 # (B, H, Hkv, Sq, Sk, hd, causal, window) of the bf16 tensor-core backward:
 # head dims 8, 24, 40, 64, 96, 128 (TMA pads them to 64 or 128); GQA ratios
 # 1, 4 and 8; Sq and Sk not multiples of 64 or 128; Sq < Sk under the
-# causal mask; windows 5 and 40; cross attention; Sk = 0
+# causal mask; windows 5 and 40; cross attention; Sk = 0; above hd 128
+# (padded to 256, columns split, heads split over blocks): MQA at 16/1
+# heads with a binding window, 6 heads a group (split unevenly on an
+# H100's 132 SMs: 4 parts), hd 192, hd 136 with Sq < Sk, and Sk = 0
 FLASH_BWD_SM90 = [(2, 4, 4, 100, 100, 8, True, 0),
                   (1, 8, 2, 130, 130, 24, True, 0),
                   (1, 8, 1, 70, 70, 40, False, 0),
@@ -423,7 +427,12 @@ FLASH_BWD_SM90 = [(2, 4, 4, 100, 100, 8, True, 0),
                   (2, 4, 1, 300, 300, 96, True, 40),
                   (1, 4, 2, 65, 200, 64, False, 0),
                   (1, 8, 2, 129, 129, 128, True, 40),
-                  (2, 4, 2, 30, 0, 64, True, 0)]
+                  (2, 4, 2, 30, 0, 64, True, 0),
+                  (1, 16, 1, 300, 300, 256, True, 100),
+                  (2, 12, 2, 1024, 1024, 256, True, 0),
+                  (1, 8, 2, 200, 200, 192, True, 0),
+                  (1, 4, 2, 70, 300, 136, True, 0),
+                  (2, 4, 1, 30, 0, 256, True, 0)]
 
 
 @pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal,window", FLASH_BWD_SM90)
@@ -431,8 +440,9 @@ def test_flash_bwd_sm90_vs_plain(dev, b, h, hkv, sq, sk, hd, causal,
                                  window):
     """The bf16 tensor-core backward against ``attention_flat_bwd_plain``
     (2e-2 relative to max(1, largest |plain gradient|)), one launch a
-    call, two calls bit-equal, and the source that ran."""
-    from repro_torch.kernels.flash_attention import (flash_attention_bshd,
+    call, two calls bit-equal, and the source and head parts that ran."""
+    from repro_torch.kernels.flash_attention import (bwd_head_parts,
+                                                     flash_attention_bshd,
                                                      flash_attention_bwd)
     q, k, v, do = _flash_bwd_case(dev, torch.bfloat16, b, h, hkv, sq, sk,
                                   hd, seed=9)
@@ -442,6 +452,9 @@ def test_flash_bwd_sm90_vs_plain(dev, b, h, hkv, sq, sk, hd, causal,
     got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
     assert flash_attention_bwd.launches == before + 1
     assert flash_attention_bwd.source == "flash_attention_bwd_sm90.cu"
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert flash_attention_bwd.head_parts == bwd_head_parts(b, h, hkv, sk,
+                                                            hd, n_sm)
     again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
     assert flash_attention_bwd.launches == before + 2
     for a, c, w in zip(got, again, _flash_bwd_plain(q, k, v, o, do, causal,

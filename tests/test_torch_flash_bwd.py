@@ -19,14 +19,20 @@ autograd and JAX differentiate through the softmax).
 
 The bfloat16 tensor-core backward (``csrc/flash_attention_bwd_sm90.cu``)
 runs only on the card; here its route table (``uses_sm90_bwd``: dtype
-and head dim alone) and its arithmetic: :func:`_sm90_emulation` rebuilds
-the kernel's roundings in plain torch (bf16 inputs, float32 sums, lse by
-the online max and sum over 64-key tiles in base 2, P and dS rounded to
-bf16 before the three accumulating products) and is held to the plain
-version and to ``jax.grad`` within the card's bf16 tolerance, 2e-2 x
-max(1, largest |gradient|) (``chip_smoke.py``'s ``ATTN_TOL``).
+and head dim alone), the rule that splits a group's query heads above hd
+128 (``bwd_head_parts``) and its arithmetic: :func:`_sm90_emulation`
+rebuilds the kernel's roundings in plain torch (bf16 inputs, float32
+sums, lse by the online max and sum over 64-key tiles in base 2, P and dS
+rounded to bf16 before the three accumulating products; above hd 128,
+lse from the even and the odd key tiles combined, and dk and dv summed
+per part of the heads and then over the parts in float32 before the bf16
+rounding) and is held to the plain version and to ``jax.grad`` within
+the card's bf16 tolerance, 2e-2 x max(1, largest |gradient|)
+(``chip_smoke.py``'s ``ATTN_TOL``).
 """
 import math
+import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +43,10 @@ import torch
 from repro.models.attention import multi_head_attention as jattention
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import (BWD_SM90_ROWS,
+                                                 SM90_BWD_WIDE_HD,
+                                                 SM90_BWD_WIDE_KEYS,
                                                  FlashAttention,
+                                                 bwd_head_parts,
                                                  flash_attention_bwd,
                                                  uses_sm90_bwd)
 from repro_torch.kernels.ref import (attention_flat_bwd_plain,
@@ -191,35 +200,89 @@ BF16_TOL = 2e-2
     (torch.bfloat16, 8, True), (torch.bfloat16, 24, True),
     (torch.bfloat16, 40, True), (torch.bfloat16, 64, True),
     (torch.bfloat16, 96, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 136, False), (torch.bfloat16, 192, False),
-    (torch.bfloat16, 256, False), (torch.bfloat16, 12, False),
+    (torch.bfloat16, 136, True), (torch.bfloat16, 192, True),
+    (torch.bfloat16, 256, True), (torch.bfloat16, 12, False),
     (torch.float32, 64, False), (torch.float32, 128, False),
     (torch.float32, 256, False)])
 def test_sm90_backward_route_table(dtype, hd, want):
-    """bf16 at hd a multiple of 8 up to 128 takes the tensor-core kernel;
-    float32 (the parity runs) and bf16 above 128 the CUDA-core one."""
+    """bf16 at hd a multiple of 8 up to 256 takes the tensor-core kernel;
+    float32 (the parity runs) the CUDA-core one."""
     assert uses_sm90_bwd(dtype, hd) is want
 
 
 def test_sm90_backward_is_built_and_sized():
-    """The source is in the build list, and its block of query rows (the
-    unit of the lse and D scratch) is the wrapper's."""
+    """The source is in the build list; the unit of the lse and D scratch
+    is the wrapper's and a multiple of every head-dim variant's block of
+    query rows (two 64-row tiles up to hd 128; one above, its two
+    consumers splitting the columns); the wrapper's split rule counts
+    the wide variant's blocks of keys; the head split's reduction kernel
+    is in the same source."""
     assert "flash_attention_bwd_sm90" in _build.SOURCES
     src = (_build.CSRC / "flash_attention_bwd_sm90.cu").read_text()
     defs = dict(line.split()[1:3] for line in src.splitlines()
                 if line.startswith("#define ") and len(line.split()) >= 3)
-    assert int(defs["NC"]) * int(defs["BT"]) == BWD_SM90_ROWS
+    nc, bt, rows = int(defs["NC"]), int(defs["BT"]), int(defs["ROWS"])
+    assert rows == BWD_SM90_ROWS == nc * bt
+    assert int(defs["WIDE_HD"]) == SM90_BWD_WIDE_HD
+    for hdp in (64, 128, 256):
+        block_rows = nc * bt // (2 if hdp > SM90_BWD_WIDE_HD else 1)
+        assert rows % block_rows == 0, hdp
+    assert nc * bt // 2 == SM90_BWD_WIDE_KEYS
     assert "wgmma" in src and "tma_load4" in src
+    assert "flash_bwd_sm90_reduce" in src
     assert not any(op in src for op in ("atomicAdd", "atom.", "red."))
 
 
-def _sm90_emulation(q, k, v, o, do, causal, window, tile=64):
+@pytest.mark.parametrize("shape,n_sm,want", [
+    ((4, 16, 1, 1024, 256), 132, 4),   # recurrentgemma's train step
+    ((1, 16, 1, 3072, 256), 132, 6),   # its window shape
+    ((2, 12, 2, 1024, 256), 132, 4),   # 6 heads a group in 4 parts
+    ((1, 16, 1, 200, 256), 132, 16),   # few keys: one head a block
+    ((4, 16, 1, 1024, 136), 132, 4),   # any hd above 128
+    ((64, 16, 16, 4096, 256), 132, 1),  # the grid fills the card
+    ((4, 32, 8, 1024, 128), 132, 1),   # up to hd 128: no split
+    ((1, 16, 1, 0, 256), 132, 1)])     # Sk = 0
+def test_sm90_backward_head_parts(shape, n_sm, want):
+    """The head split's rule: about two blocks an SM, clamped to the
+    group's heads, 1 up to hd 128 and at Sk = 0; parts of an uneven
+    group differ by one head."""
+    b, h, hkv, sk, hd = shape
+    parts = bwd_head_parts(b, h, hkv, sk, hd, n_sm)
+    assert parts == want
+    qpk = h // hkv
+    sizes = [(i + 1) * qpk // parts - i * qpk // parts
+             for i in range(parts)]
+    assert sum(sizes) == qpk and max(sizes) - min(sizes) <= 1
+    assert min(sizes) >= 1
+
+
+def _online_max_sum(x, mask, tiles):
+    """The kernel's pass 1 over the key tiles ``tiles`` (of 64) of the
+    scaled scores x: each row's running max and sum in base 2."""
+    bh, sq, _ = x.shape
+    m = torch.full((bh, sq), -1e30)
+    l = torch.zeros((bh, sq))
+    for k0 in tiles:
+        xt, mt = x[:, :, k0:k0 + 64], mask[None, :, k0:k0 + 64]
+        mn = torch.maximum(m, xt.max(dim=-1).values)
+        pt = torch.where(mt, torch.exp2(xt - mn[..., None]), 0.0)
+        l = l * torch.exp2(m - mn) + pt.sum(dim=-1)
+        m = mn
+    return m, l
+
+
+def _sm90_emulation(q, k, v, o, do, causal, window, parts=1,
+                    lse_split=False):
     """``flash_attention_bwd_sm90.cu``'s arithmetic on flat (BH, S, hd)
     bf16 tensors, in float32: S and dP from the bf16 inputs; lse (base 2,
-    of S scale log2 e) by the online max and sum over key tiles of
-    ``tile``, NO_LSE where a row sees no key; P = 2^(S scale log2 e -
-    lse); D from bf16 o and dO; P and dS rounded to bf16 before dV, dQ
-    and dK; outputs rounded to bf16."""
+    of S scale log2 e) by the online max and sum over 64-key tiles in
+    order, NO_LSE where a row sees no key (``lse_split``, the kernel above
+    hd 128: over the even tiles and over the odd ones, combined as m =
+    max(m0, m1), l = l0 2^(m0 - m) + l1 2^(m1 - m)); P = 2^(S scale
+    log2 e - lse); D from bf16 o and dO; P and dS rounded to bf16 before dV, dQ
+    and dK; dK and dV summed over the heads of each of ``parts`` parts
+    of a group (part i: heads i qpk / parts ..), then over the parts in
+    order, dK scaled after the sum; outputs rounded to bf16."""
     bh, sq, hd = q.shape
     bhkv, sk, _ = k.shape
     qpk = bh // bhkv
@@ -237,14 +300,13 @@ def _sm90_emulation(q, k, v, o, do, causal, window, tile=64):
         mask &= kpos > qpos - window
     s = torch.einsum("bqd,bkd->bqk", qf, kf)
     x = torch.where(mask[None], s * sl2, torch.tensor(-1e30))
-    m = torch.full((bh, sq), -1e30)
-    l = torch.zeros((bh, sq))
-    for k0 in range(0, sk, tile):
-        xt, mt = x[:, :, k0:k0 + tile], mask[None, :, k0:k0 + tile]
-        mn = torch.maximum(m, xt.max(dim=-1).values)
-        pt = torch.where(mt, torch.exp2(xt - mn[..., None]), 0.0)
-        l = l * torch.exp2(m - mn) + pt.sum(dim=-1)
-        m = mn
+    if lse_split:
+        m0, l0 = _online_max_sum(x, mask, range(0, sk, 128))
+        m1, l1 = _online_max_sum(x, mask, range(64, sk, 128))
+        m = torch.maximum(m0, m1)
+        l = l0 * torch.exp2(m0 - m) + l1 * torch.exp2(m1 - m)
+    else:
+        m, l = _online_max_sum(x, mask, range(0, sk, 64))
     lse = torch.where(l > 0, m + torch.log2(l), torch.tensor(1e30))
     p = torch.where(mask[None], torch.exp2(s * sl2 - lse[..., None]), 0.0)
     dsum = (dof * of).sum(dim=-1, keepdim=True)
@@ -252,24 +314,46 @@ def _sm90_emulation(q, k, v, o, do, causal, window, tile=64):
     ds = (p * (dp - dsum)).bfloat16().float()
     pb = p.bfloat16().float()
     dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
-    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
-    dv = torch.einsum("bqk,bqd->bkd", pb, dof)
-    dk = dk.view(bhkv, qpk, sk, hd).sum(dim=1)
-    dv = dv.view(bhkv, qpk, sk, hd).sum(dim=1)
-    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+    dk_h = torch.einsum("bqk,bqd->bkd", ds, qf).view(bhkv, qpk, sk, hd)
+    dv_h = torch.einsum("bqk,bqd->bkd", pb, dof).view(bhkv, qpk, sk, hd)
+    dk = torch.zeros((bhkv, sk, hd))
+    dv = torch.zeros((bhkv, sk, hd))
+    for i in range(parts):
+        lo, hi = i * qpk // parts, (i + 1) * qpk // parts
+        dk = dk + dk_h[:, lo:hi].sum(dim=1)
+        dv = dv + dv_h[:, lo:hi].sum(dim=1)
+    return dq.bfloat16(), (dk * scale).bfloat16(), dv.bfloat16()
 
 
 #: (B, H, Hkv, Sq, Sk, hd, causal, window): a small-S version of the
 #: trainer's shape (8/2 heads, hd 128), MQA at hd 64 with Sq not a
 #: multiple of a tile, GQA ratio 8, head dims 24, 40, 96 and 8, windows
 #: 5 and 40, fewer queries than keys under the causal mask, cross
-#: attention
+#: attention; above hd 128 (columns split, heads split over
+#: ``bwd_head_parts`` blocks): recurrentgemma's MQA at hd 256 with a
+#: window narrower than a tile, GQA at hd 192, and hd 136 with Sq < Sk
+#: under the causal mask
 EMULATED = [(1, 8, 2, 256, 256, 128, True, 0),
             (1, 4, 1, 200, 200, 64, True, 0),
             (1, 8, 1, 130, 130, 96, True, 40),
             (2, 4, 4, 96, 96, 24, True, 5),
             (1, 8, 2, 50, 130, 40, True, 0),
-            (1, 2, 2, 64, 100, 8, False, 0)]
+            (1, 2, 2, 64, 100, 8, False, 0),
+            (1, 16, 1, 200, 200, 256, True, 40),
+            (1, 12, 2, 150, 150, 192, True, 0),
+            (1, 4, 2, 70, 160, 136, True, 0)]
+#: the H100's streaming multiprocessors, for the head split's rule
+H100_SMS = 132
+
+
+def _emulate(args, shape):
+    """:func:`_sm90_emulation` as the card runs ``shape``: above hd 128
+    the head split for an H100 and pass 1 split by key tiles."""
+    b, h, hkv, sq, sk, hd, causal, window = shape
+    return _sm90_emulation(*args, causal, window,
+                           parts=bwd_head_parts(b, h, hkv, sk, hd,
+                                                H100_SMS),
+                           lse_split=hd > SM90_BWD_WIDE_HD)
 
 
 def _bf16_inputs(b, h, hkv, sq, sk, hd, seed):
@@ -296,7 +380,7 @@ def test_sm90_roundings_within_tolerance_of_plain(shape):
     o = _bshd(attention_flat_plain(_flat(q), _flat(k), _flat(v),
                                    causal=causal, window=window), b)
     args = [_flat(t) for t in (q, k, v, o, do)]
-    got = _sm90_emulation(*args, causal, window)
+    got = _emulate(args, shape)
     want = attention_flat_bwd_plain(*args, causal=causal, window=window)
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -311,8 +395,7 @@ def test_sm90_roundings_within_tolerance_of_jax(shape):
     q, k, v, _, do = _bf16_inputs(b, h, hkv, sq, sk, hd, seed=8)
     o = _bshd(attention_flat_plain(_flat(q), _flat(k), _flat(v),
                                    causal=causal, window=window), b)
-    got = _sm90_emulation(*(_flat(t) for t in (q, k, v, o, do)), causal,
-                          window)
+    got = _emulate([_flat(t) for t in (q, k, v, o, do)], shape)
     qn, kn, vn, don = (t.float().numpy() for t in (q, k, v, do))
 
     def loss(q, k, v):
@@ -343,3 +426,25 @@ def test_sm90_emulation_sk_zero_and_empty_rows():
     for g, w in zip(got, want):
         assert torch.isfinite(g.float()).all()
         _close_bf16(g, w)
+
+
+def test_chip_smoke_holds_each_backward_gradient():
+    """chip_smoke's attention-backward check holds dq, dk and dv each to
+    its own plain gradient.  At MQA, dk and dv sum over the group's 16
+    query heads and dwarf dq, so a dq whose last 64 rows are halved
+    passes a max abs error scaled by the largest of the three; it must
+    fail here, and the exact gradients must pass."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    b, h, hkv, s, hd = 1, 16, 1, 512, 256
+    q, k, v, o, do = _bf16_inputs(b, h, hkv, s, s, hd, seed=11)
+    want = chip_smoke._bwd_plain(q, k, v, o, do, True, 0)
+    err, scale, each = chip_smoke._hold_bwd(torch, want, want, "bfloat16",
+                                            "exact")
+    assert err == 0 and all(e["rel_norm_err"] == 0 for e in each.values())
+    got = [w.clone() for w in want]
+    got[0][:, s - 64:] *= 0.5
+    err, scale = chip_smoke._bwd_err(got, want)
+    chip_smoke._hold("flash_attention_bwd", err, "bfloat16", "late", scale)
+    with pytest.raises(AssertionError, match="flash_attention_bwd dq"):
+        chip_smoke._hold_bwd(torch, got, want, "bfloat16", "late")
