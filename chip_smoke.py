@@ -111,12 +111,16 @@ One JSON line per phase:
    chunk, an initial carry, small hd, in bfloat16 a head dim above the
    tensor-core kernel's limit), with the final (C, n) and the source
    that ran;
-14b. mlstm_chunkwise_bwd — the backward kernel
-   (``csrc/mlstm_kernel_bwd.cu``, float32 sums for both dtypes) vs its
-   plain version (``mlstm_chunkwise_bwd_plain``) at xlstm's train shape
-   (BH=16, S=1,024, hd=1,024), bfloat16 and float32, timed; S = 200 (a
-   padded tail), an initial (C, n), gradients of the final (C, n), and the
-   forward phase's small shapes; every case twice, bit-equal;
+14b. mlstm_chunkwise_bwd — the backward kernels
+   (``csrc/mlstm_kernel_bwd_sm90.cu`` for bfloat16 on the tensor cores,
+   ``csrc/mlstm_kernel_bwd.cu`` for float32 and other bf16 head dims) vs
+   their plain version (``mlstm_chunkwise_bwd_plain``) at xlstm's train
+   shape (BH=16, S=1,024, hd=1,024), bfloat16 and float32, timed (in bf16
+   beside the first design on the same tensors); S = 200 (a padded tail),
+   an initial (C, n), gradients of the final (C, n), the forward phase's
+   small shapes and a bf16 head dim off the tensor-core route; each
+   gradient by its max abs error and its relative norm, the source its
+   dtype and head dim pick, every case twice, bit-equal;
 15. serve — the serving path: ``BatchServer`` on full-width, full-depth
    qwen3_4b in bfloat16 (random weights from a seed), 4 prompts of 1,024
    tokens, 32 new tokens; one warm-up ``generate`` and 3 timed ones,
@@ -228,10 +232,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: order 1); float32 differ only by the order of the float32 sums.  The
 #: recurrences hold it relative to max(1, largest |plain value|).
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-#: the attention backward's ||got - want|| / ||want||, for each of dq, dk
-#: and dv against its own plain gradient: a wrong or missing tile of small
-#: late rows shows here where the max abs error may hide it (about 2.6e-3
-#: for bf16's roundings at the repo's CPU emulation of the kernel)
+#: the backward kernels' ||got - want|| / ||want||, for each gradient
+#: against its own plain gradient: a wrong or missing tile of small late
+#: rows shows here where the max abs error may hide it (about 2.6e-3 for
+#: the attention backward's bf16 roundings and at most 3.9e-3 for the
+#: mLSTM backward's, at the repo's CPU emulations of the kernels)
 ATTN_BWD_REL_NORM = {"bfloat16": 1e-2, "float32": 1e-4}
 #: timed calls per measurement, after warm-up
 ITERS = 30
@@ -1443,9 +1448,17 @@ def phase_decode_attention(torch, np, dev):
 
 RGLRU_KERNELS = ("rglru_chained_kernel",)
 RGLRU_BWD_KERNELS = ("rglru_bwd_chained_kernel",)
-#: the six kernels of csrc/mlstm_kernel_bwd.cu, each launched once a call
-MLSTM_BWD_KERNELS = ("mlstm_bwd_states", "mlstm_bwd_u", "mlstm_bwd_intra",
-                     "mlstm_bwd_walk", "mlstm_bwd_dk", "mlstm_bwd_gates")
+#: the six kernels of csrc/mlstm_kernel_bwd.cu (float32, and bf16 off the
+#: tensor-core route) and of csrc/mlstm_kernel_bwd_sm90.cu (bf16), each
+#: launched once a call of its route; no name of one list contains a name
+#: of the other
+MLSTM_BWD_KERNELS_CUDA_CORES = ("mlstm_bwd_states", "mlstm_bwd_u",
+                                "mlstm_bwd_intra", "mlstm_bwd_walk",
+                                "mlstm_bwd_dk", "mlstm_bwd_gates")
+MLSTM_BWD_KERNELS_SM90 = ("mlstm_bwd_sm90_scores", "mlstm_bwd_sm90_den",
+                          "mlstm_bwd_sm90_dwalk", "mlstm_bwd_sm90_cwalk",
+                          "mlstm_bwd_sm90_intra", "mlstm_bwd_sm90_gates")
+MLSTM_BWD_KERNELS = MLSTM_BWD_KERNELS_CUDA_CORES + MLSTM_BWD_KERNELS_SM90
 #: the device kernels of both routes: mlstm_kernel.cu's and
 #: mlstm_kernel_sm90.cu's
 MLSTM_KERNELS = ("scores_kernel", "carry_kernel", "mlstm_scores_sm90",
@@ -1586,7 +1599,9 @@ RGLRU_BWD_CASES = [(4, 1024, 4096, False, True), (4, 1024, 4096, True, False),
                    (1, 300, 32, True, False), (2, 16, 8, True, False)]
 #: (BH, S, hd, initial carry, final-state gradients, timed) for the mLSTM
 #: backward, both dtypes: xlstm's train shape (timed), S = 200 (a padded
-#: tail) with both carries, each carry alone, and MLSTM_CASES' small shapes
+#: tail) with both carries, each carry alone, MLSTM_CASES' small shapes,
+#: and hd 100, which bf16 runs on the first design (off the tensor-core
+#: route: not a multiple of 8)
 MLSTM_BWD_CASES = [(16, 1024, 1024, False, False, True),
                    (4, 200, 1024, True, True, False),
                    (2, 128, 32, True, False, False),
@@ -1594,7 +1609,8 @@ MLSTM_BWD_CASES = [(16, 1024, 1024, False, False, True),
                    (1, 64, 128, False, False, False),
                    (2, 200, 64, True, True, False),
                    (3, 130, 96, True, False, False),
-                   (2, 64, 8, True, True, False)]
+                   (2, 64, 8, True, True, False),
+                   (1, 70, 100, True, False, False)]
 
 
 def phase_rglru_scan_bwd(torch, np, dev):
@@ -1654,28 +1670,63 @@ def mlstm_bwd_work(bh: int, s: int, hd: int, elt: int, carry_in: bool,
     """(bytes, FLOPs) of one mLSTM backward call: q, k, v and dh read and
     dq, dk, dv written in the model dtype, the gates read and their
     gradients written, the initial carry read and its gradient written
-    where given, the final carry's gradient read where given, and the
-    chunk-start states the design stores (written and read once); about
+    where given, the final carry's gradient read where given; about
     10 hd^2 + 10 L hd FLOPs per token and head."""
     from repro_torch.kernels.mlstm_kernel import CHUNK
     carry = 4 * bh * (hd * hd + hd)
-    states = 4 * bh * (-(-s // CHUNK)) * hd * hd
     n_bytes = (elt * 7 * bh * s * hd + 4 * 4 * bh * s
-               + carry * ((2 if carry_in else 1) + (1 if final else 0))
-               + 2 * states)
+               + carry * ((2 if carry_in else 1) + (1 if final else 0)))
     return n_bytes, bh * s * (10 * hd * hd + 10 * CHUNK * hd)
 
 
+def mlstm_bwd_stored_bytes(bh: int, s: int, hd: int, sm90: bool) -> int:
+    """Bytes a backward design writes to its workspace and reads back
+    once: the tensor-core design's dC' of every chunk in bf16 and u, y and
+    the chunk-internal dk in float32; the first design's chunk-start
+    states in float32 (overwritten by dC' and read again)."""
+    from repro_torch.kernels.mlstm_kernel import CHUNK
+    nc = -(-s // CHUNK)
+    if sm90:
+        return 2 * (2 * bh * nc * hd * hd + 3 * 4 * bh * nc * CHUNK * hd)
+    return 2 * 4 * bh * nc * hd * hd
+
+
+#: the mLSTM backward's outputs, in the order the wrapper returns them
+MLSTM_BWD_GRADS = ("dq", "dk", "dv", "di_raw", "df_raw", "dc0", "dn0")
+
+
+def _hold_mlstm_bwd(torch, got, want, dtype: str, where) -> tuple:
+    """Holds each of the mLSTM backward's seven outputs to its own plain
+    gradient: max abs error within ``ATTN_TOL`` x max(1, its largest
+    |plain value|), and ||got - want|| / ||want|| within
+    ``ATTN_BWD_REL_NORM``.  Returns ({name: max abs error}, {name:
+    relative norm})."""
+    errs, rels = {}, {}
+    for part, a, w in zip(MLSTM_BWD_GRADS, got, want):
+        err, scale = _err(a, w), float(w.float().abs().max())
+        name = f"mlstm_chunkwise_bwd {part}"
+        _hold(name, err, dtype, (*where, part), scale)
+        rels[part] = _hold_rel_norm(torch, name, a, w, dtype, (*where, part))
+        errs[part] = err
+    return errs, rels
+
+
 def phase_mlstm_chunkwise_bwd(torch, np, dev):
-    """The backward kernel (``csrc/mlstm_kernel_bwd.cu``, float32 sums on
-    the CUDA cores for both dtypes) against its plain version
-    (``mlstm_chunkwise_bwd_plain``) on the card: dq, dk, dv (in q's
-    dtype), di_raw, df_raw, dc0 and dn0 within ``ATTN_TOL`` of the dtype
-    x max(1, largest |plain gradient|), every case twice and bit-equal,
-    an ``i_raw`` above the cap passing no gradient; timed at xlstm's train
-    shape.  The bound is at the float32 CUDA-core peak (the route that
-    runs) with the stored states' bytes.  No PyTorch call computes it."""
-    from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise_bwd
+    """The backward kernels (``csrc/mlstm_kernel_bwd_sm90.cu``: bf16 on
+    the tensor cores at hd a multiple of 8 up to ``SM90_BWD_MAX_HD``;
+    ``csrc/mlstm_kernel_bwd.cu``: float32 sums on the CUDA cores, for
+    float32 and every other bf16 head dim) against their plain version
+    (``mlstm_chunkwise_bwd_plain``) on the card: each of dq, dk, dv (in
+    q's dtype), di_raw, df_raw, dc0 and dn0 within ``ATTN_TOL`` of the
+    dtype x max(1, its largest |plain value|) and by
+    ||got - want|| / ||want|| within ``ATTN_BWD_REL_NORM``; every case on
+    the source its dtype and hd pick, twice and bit-equal, an ``i_raw``
+    above the cap passing no gradient; timed at xlstm's train shape, and
+    in bf16 the first design beside it on the same tensors.  The bound is
+    the function's work at the peak of the route that runs (bf16 on the
+    tensor cores, float32 on the CUDA cores); the bytes its design stores
+    and reads back are beside it.  No PyTorch call computes it."""
+    from repro_torch.kernels import mlstm_kernel as mk
     from repro_torch.kernels.ref import I_CAP, mlstm_chunkwise_bwd_plain
     g = torch.Generator(device=dev).manual_seed(14)
     main, edge = [], []
@@ -1696,17 +1747,23 @@ def phase_mlstm_chunkwise_bwd(torch, np, dev):
                 for on, shape in ((carry, (bh, hd, hd)), (carry, (bh, hd)),
                                   (final, (bh, hd, hd)), (final, (bh, hd))))
             args = (q, k, v, ig, fg, c0, n0, dh, dc, dn)
-            got = flat(mlstm_chunkwise_bwd(*args))
-            again = flat(mlstm_chunkwise_bwd(*args))
+            before = mk.mlstm_chunkwise_bwd.launches
+            got = flat(mk.mlstm_chunkwise_bwd(*args))
+            again = flat(mk.mlstm_chunkwise_bwd(*args))
             want = flat(mlstm_chunkwise_bwd_plain(*args))
             torch.cuda.synchronize()
-            errs = {}
-            for part, a, w in zip(("dq", "dk", "dv", "di_raw", "df_raw",
-                                   "dc0", "dn0"), got, want):
-                err, scale = _err(a, w), float(w.float().abs().max())
-                _hold("mlstm_chunkwise_bwd", err, dname,
-                      (bh, s, hd, carry, final, part), scale)
-                errs[part] = err
+            sm90 = mk.uses_sm90_bwd(dt, hd)
+            source = ("mlstm_kernel_bwd_sm90.cu" if sm90
+                      else "mlstm_kernel_bwd.cu")
+            if (mk.mlstm_chunkwise_bwd.source != source
+                    or mk.mlstm_chunkwise_bwd.launches != before + 2):
+                raise AssertionError(
+                    f"mlstm_chunkwise_bwd at {(bh, s, hd)} {dname} ran "
+                    f"{mk.mlstm_chunkwise_bwd.source} "
+                    f"({mk.mlstm_chunkwise_bwd.launches - before} launches "
+                    f"for 2 calls), expected {source}")
+            errs, rels = _hold_mlstm_bwd(torch, got, want, dname,
+                                         (bh, s, hd, carry, final))
             if not all(torch.equal(a, c) for a, c in zip(got, again)):
                 raise AssertionError(f"mlstm_chunkwise_bwd: two calls at "
                                      f"{(bh, s, hd)} ({dname}) differ")
@@ -1715,29 +1772,51 @@ def phase_mlstm_chunkwise_bwd(torch, np, dev):
                                      "cap is not 0")
             case = {"dtype": dname, "BH": bh, "S": s, "hd": hd,
                     "carry_in": carry, "final_grad": final,
-                    "kernel": mlstm_chunkwise_bwd.source,
+                    "kernel": mk.mlstm_chunkwise_bwd.source,
                     "max_abs_err": max(errs.values()), "errs": errs,
-                    "bit_equal": True}
+                    "rel_norm_errs": rels, "bit_equal": True}
             del got, again, want
             if not timed:
                 edge.append(case)
                 continue
             n_bytes, flops = mlstm_bwd_work(bh, s, hd, q.element_size(),
                                             carry, final)
-            bound, by = attn_bound_ms(n_bytes, flops, "float32")
-            main.append({**case, **_timings(
-                torch, lambda: mlstm_chunkwise_bwd(*args),
-                lambda: mlstm_chunkwise_bwd_plain(*args), MLSTM_BWD_KERNELS,
-                5, plain_iters=3),
+            bound, by = attn_bound_ms(n_bytes, flops,
+                                      "bfloat16" if sm90 else "float32")
+            stored = mlstm_bwd_stored_bytes(bh, s, hd, sm90)
+            row = {**case, **_timings(
+                torch, lambda: mk.mlstm_chunkwise_bwd(*args),
+                lambda: mlstm_chunkwise_bwd_plain(*args),
+                MLSTM_BWD_KERNELS_SM90 if sm90
+                else MLSTM_BWD_KERNELS_CUDA_CORES, 5, plain_iters=3),
                 "bound_ms": bound, "bound_by": by, "flops": flops,
                 "bytes": n_bytes, "library_ms": None,
+                "stored_bytes": stored,
+                "stored_bytes_bound_ms": bound_ms(stored + n_bytes),
                 "bf16_tensor_core_bound_ms": flops / PEAK_FLOPS["bfloat16"]
-                * 1e3})
+                * 1e3}
+            if sm90:  # the first design on the same bf16 tensors
+                outs = [torch.empty_like(x) for x in (q, k, v, ig, fg)] + [
+                    torch.empty(bh, hd, hd, device=dev),
+                    torch.empty(bh, hd, device=dev)]
+
+                def first():  # S is a multiple of the chunk: no padding
+                    err = mk._bwd_cuda_cores(q, k, v, dh, ig, fg, c0, n0, dc,
+                                             dn, *outs)
+                    if err:
+                        raise RuntimeError(f"mlstm_kernel_bwd.cu: CUDA "
+                                           f"error {err}")
+                first_t = _kernel_timings(torch, first,
+                                          MLSTM_BWD_KERNELS_CUDA_CORES, 5)
+                row.update({f"first_design_{k_}": v_
+                            for k_, v_ in first_t.items()})
+                del outs
+            main.append(row)
             del args, q, k, v, dh
             torch.cuda.empty_cache()
     emit("mlstm_chunkwise_bwd", tolerance=ATTN_TOL,
          tolerance_relative_to="max(1, largest |plain gradient|)",
-         shapes=main, edge=edge)
+         rel_norm_limit=ATTN_BWD_REL_NORM, shapes=main, edge=edge)
     return main[0]
 
 
@@ -1872,6 +1951,19 @@ def expected_train_launches(cfg, n_steps: int) -> dict:
             "rglru_scan": fwd * n_rec, "rglru_scan_bwd": n_steps * n_rec,
             "mlstm_chunkwise": fwd * n_mlstm,
             "mlstm_chunkwise_bwd": n_steps * n_mlstm}
+
+
+def expected_train_sources(torch, cfg) -> dict:
+    """The source each recurrent backward of a bf16 train step must run
+    (the route tables pick by dtype and head dim): xlstm's mLSTM at its
+    head dim; none for the other families."""
+    if cfg.family != "xlstm":
+        return {}
+    from repro_torch.kernels.mlstm_kernel import uses_sm90_bwd
+    from repro_torch.models.xlstm import d_inner
+    hd = d_inner(cfg) // cfg.n_heads
+    return {"mlstm_chunkwise_bwd": "mlstm_kernel_bwd_sm90.cu"
+            if uses_sm90_bwd(torch.bfloat16, hd) else "mlstm_kernel_bwd.cu"}
 
 
 def _device_kernels(records: dict, launched: dict):
@@ -2219,6 +2311,24 @@ def _bwd_err(got, want) -> tuple:
     return err, scale
 
 
+def rel_norm(torch, got, want) -> float:
+    """||got - want|| / ||want|| in float32 (||got - want|| where want is
+    0; NaN where got has one)."""
+    diff = float(torch.linalg.vector_norm(got.float() - want.float()))
+    norm = float(torch.linalg.vector_norm(want.float()))
+    return diff / norm if norm > 0 else diff
+
+
+def _hold_rel_norm(torch, name: str, got, want, dtype: str, where) -> float:
+    """``rel_norm`` within ``ATTN_BWD_REL_NORM`` of the dtype; returns
+    it."""
+    rel = rel_norm(torch, got, want)
+    if not rel <= ATTN_BWD_REL_NORM[dtype]:
+        raise AssertionError(f"{name} kernel != plain at {where} ({dtype}): "
+                             f"||got - want|| / ||want|| {rel}")
+    return rel
+
+
 def _hold_bwd(torch, got, want, dtype: str, where) -> tuple:
     """Holds dq, dk and dv each to its own plain gradient (max abs error
     within ``ATTN_TOL`` x max(1, its largest |plain value|), and
@@ -2232,13 +2342,8 @@ def _hold_bwd(torch, got, want, dtype: str, where) -> tuple:
             continue
         e, sc = _bwd_err([a], [w])
         _hold(f"flash_attention_bwd {gname}", e, dtype, where, sc)
-        diff = torch.linalg.vector_norm(a.float() - w.float())
-        norm = float(torch.linalg.vector_norm(w.float()))
-        rel = float(diff) / norm if norm > 0 else float(diff)
-        if not rel <= ATTN_BWD_REL_NORM[dtype]:
-            raise AssertionError(
-                f"flash_attention_bwd {gname} kernel != plain at {where} "
-                f"({dtype}): ||got - want|| / ||want|| {rel}")
+        rel = _hold_rel_norm(torch, f"flash_attention_bwd {gname}", a, w,
+                             dtype, where)
         each[gname] = {"max_abs_err": e, "scale": sc, "rel_norm_err": rel}
     err, scale = _bwd_err(got, want)
     _hold("flash_attention_bwd", err, dtype, where, scale)
@@ -2416,6 +2521,8 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         want = expected_train_launches(cfg, 1)
+        want_src = expected_train_sources(torch, cfg)
+        wrappers = _serving_wrappers()
         steps = []
         for step in range(warm + timed):
             data = tr.data.batch(step)
@@ -2438,6 +2545,10 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
             if counts != want:
                 raise AssertionError(f"{phase} step {step}: launches "
                                      f"{counts}, expected {want}")
+            sources = {w: wrappers[w].source for w in want_src}
+            if sources != want_src:
+                raise AssertionError(f"{phase} step {step}: sources "
+                                     f"{sources}, expected {want_src}")
             gnorm = float(metrics["grad_norm"])
             if not (np.isfinite(loss) and np.isfinite(gnorm)):
                 raise AssertionError(f"{phase} step {step}: loss {loss}, "
@@ -2495,6 +2606,7 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
          warmup_steps=warm, init_s=init_s, steps=steps,
          step_s_median=med, tokens_per_s=batch * seq_len / med,
          peak_memory_bytes=peak, expected_launches_per_step=want,
+         kernel_sources=want_src,
          moe_slots=None if drops is None else
          batch * seq_len * cfg.top_k,
          moe_dropped_slots_by_layer=drops,
@@ -2818,7 +2930,7 @@ def main(argv=None) -> int:
              "gradient of src/repro/kernels/rglru_scan.py:60 (the JAX "
              "package differentiates its jnp version; no Pallas kernel)"),
             ("mlstm_chunkwise_bwd", mlb,
-             "src/repro_torch/kernels/csrc/mlstm_kernel_bwd.cu",
+             f"src/repro_torch/kernels/csrc/{mlb['kernel']}",
              "gradient of src/repro/kernels/mlstm_kernel.py:79 (the JAX "
              "package differentiates its jnp version; no Pallas kernel)")):
         kernels.append({

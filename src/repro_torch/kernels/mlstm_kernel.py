@@ -35,13 +35,24 @@ which carry the state through unchanged (large finite values, so no
 
 The gradient, bound through :class:`MlstmChunkwise`, a
 ``torch.autograd.Function`` around either forward route that saves only
-its inputs, is :func:`mlstm_chunkwise_bwd`: ``csrc/mlstm_kernel_bwd.cu``,
-float32 sums on the CUDA cores for both dtypes, which rebuilds the
-chunk-start states into a workspace that lives for the call and walks the
-chunks in reverse carrying dC and dn (see its source note).  The JAX
-package differentiates its jnp chunkwise form; it has no backward Pallas
-kernel.  A call on CUDA tensors goes through it when grad mode is on and
-an input requires grad; otherwise (serving) nothing is saved.
+its inputs, is :func:`mlstm_chunkwise_bwd`, two kernels chosen by dtype
+and head dim only (:func:`uses_sm90_bwd`):
+
+- bf16 with hd a multiple of 8 up to ``SM90_BWD_MAX_HD`` = 1,152 runs
+  ``csrc/mlstm_kernel_bwd_sm90.cu``: every product on the tensor cores
+  (``mma.sync`` bf16 -> fp32), a reverse walk over dC and a forward walk
+  over C, each block's slab of the state in shared memory for the whole
+  walk, each chunk's dC' stored in bf16 for the products that follow,
+  and both carries' gated factors split into two bf16 parts (see its
+  source note, and tests/test_torch_mlstm_bwd_split.py);
+- float32 at any hd, and every other bf16 head dim, run the first
+  design, ``csrc/mlstm_kernel_bwd.cu``: float32 sums on the CUDA cores,
+  the chunk-start states rebuilt into the workspace.
+
+Each allocates its workspace for the call.  The JAX package
+differentiates its jnp chunkwise form; it has no backward Pallas kernel.
+A call on CUDA tensors goes through it when grad mode is on and an input
+requires grad; otherwise (serving) nothing is saved.
 
 On a CPU tensor the wrappers compute the plain versions at the kernel's
 chunk (:func:`mlstm_flat_plain`, over
@@ -73,6 +84,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 CHUNK = MLSTM_KERNEL_CHUNK     # L in csrc/mlstm_kernel{,_sm90,_bwd}.cu
 MAX_HD = 8192
 SM90_MAX_HD = 2816            # mlstm_sm90_max_hd() in csrc/mlstm_kernel_sm90.cu
+#: mlstm_bwd_sm90_max_hd() in csrc/mlstm_kernel_bwd_sm90.cu
+SM90_BWD_MAX_HD = 1152
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,10 +145,43 @@ def _lib_bwd():
     return fn, ws
 
 
+@functools.lru_cache(maxsize=None)
+def _lib_bwd_sm90():
+    """The bf16 tensor-core backward's launcher and workspace-size
+    function, set up once; checks that the source's chunk is ``CHUNK``
+    and its head-dim limit ``SM90_BWD_MAX_HD``."""
+    lib = _build.load("mlstm_kernel_bwd_sm90")
+    for name in ("mlstm_bwd_sm90_chunk_len", "mlstm_bwd_sm90_max_hd"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = _I
+    if (lib.mlstm_bwd_sm90_chunk_len(), lib.mlstm_bwd_sm90_max_hd()) != (
+            CHUNK, SM90_BWD_MAX_HD):
+        raise RuntimeError(
+            f"mlstm_kernel_bwd_sm90.cu's chunk and head-dim limit are "
+            f"{lib.mlstm_bwd_sm90_chunk_len()}, "
+            f"{lib.mlstm_bwd_sm90_max_hd()}; the wrapper expects {CHUNK}, "
+            f"{SM90_BWD_MAX_HD}")
+    ws = lib.mlstm_bwd_sm90_workspace_bytes
+    ws.argtypes = [_I, _I, _I]
+    ws.restype = ctypes.c_longlong
+    fn = lib.mlstm_bwd_sm90_launch
+    fn.argtypes = [_P] * 18 + [_I, _I, _I, ctypes.c_double, _P]
+    fn.restype = _I
+    return fn, ws
+
+
 def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
     """Whether a CUDA call at this dtype and head dim runs
     ``csrc/mlstm_kernel_sm90.cu`` (else ``csrc/mlstm_kernel.cu``)."""
     return dtype == torch.bfloat16 and hd % 8 == 0 and hd <= SM90_MAX_HD
+
+
+def uses_sm90_bwd(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a CUDA call of :func:`mlstm_chunkwise_bwd` at this dtype
+    and head dim runs ``csrc/mlstm_kernel_bwd_sm90.cu`` (else
+    ``csrc/mlstm_kernel_bwd.cu``)."""
+    return (dtype == torch.bfloat16 and hd % 8 == 0
+            and hd <= SM90_BWD_MAX_HD)
 
 
 def _check(q, k, v, i_raw, f_raw, c0, n0):
@@ -295,8 +341,9 @@ def mlstm_chunkwise_bwd(q, k, v, i_raw, f_raw, c0, n0, dh, dc=None,
     dtype, (di_raw, df_raw) float32, (dc0, dn0) float32).
 
     On CPU tensors: :func:`repro_torch.kernels.ref.mlstm_chunkwise_bwd_plain`.
-    On CUDA tensors: ``csrc/mlstm_kernel_bwd.cu`` on the tail-padded
-    inputs (dh padded with zeros), the padded rows dropped; or raise."""
+    On CUDA tensors: the kernel :func:`uses_sm90_bwd` picks, on the
+    tail-padded inputs (dh padded with zeros), the padded rows dropped;
+    or raise."""
     _check(q, k, v, i_raw, f_raw, c0, n0)
     bh, s, hd = q.shape
     for name, t, dtype, shape in (("dh", dh, q.dtype, (bh, s, hd)),
@@ -335,25 +382,58 @@ def mlstm_chunkwise_bwd(q, k, v, i_raw, f_raw, c0, n0, dh, dc=None,
         dhp[:, :s] = dh
     dq, dk, dv = (torch.empty_like(qp) for _ in range(3))
     di, df = torch.empty_like(ip), torch.empty_like(fp)
-    fn, ws_floats = _lib_bwd()
-    ws = torch.empty(ws_floats(bh, sp, hd), **f32)
     dc, dn = (None if t is None else t.contiguous() for t in (dc, dn))
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(ptr(t) for t in (qp, kp, vp, dhp, ip, fp, c0, n0, dc,
-                                    dn, dq, dk, dv, di, df, dc0, dn0, ws)),
-                 bh, sp, hd, 1.0 / math.sqrt(hd),
-                 int(q.dtype == torch.bfloat16), stream)
+    if uses_sm90_bwd(q.dtype, hd):
+        source, launch = "mlstm_kernel_bwd_sm90.cu", _bwd_sm90
+    else:
+        source, launch = "mlstm_kernel_bwd.cu", _bwd_cuda_cores
+    err = launch(qp, kp, vp, dhp, ip, fp, c0, n0, dc, dn, dq, dk, dv, di, df,
+                 dc0, dn0)
     if err != 0:
         raise RuntimeError(f"mlstm_chunkwise_bwd kernel launch failed "
-                           f"(mlstm_kernel_bwd.cu): CUDA error {err}")
+                           f"({source}): CUDA error {err}")
     mlstm_chunkwise_bwd.launches += 1
-    mlstm_chunkwise_bwd.source = "mlstm_kernel_bwd.cu"
+    mlstm_chunkwise_bwd.source = source
     return ((dq[:, :s], dk[:, :s], dv[:, :s]), (di[:, :s], df[:, :s]),
             (dc0, dn0))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_cuda_cores(q, k, v, dh, i_raw, f_raw, c0, n0, dc, dn, dq, dk, dv,
+                    di, df, dc0, dn0) -> int:
+    """``csrc/mlstm_kernel_bwd.cu`` on tail-padded contiguous inputs of
+    either dtype, into the given outputs; returns its error code.  Its
+    float32 workspace is allocated here for the call."""
+    bh, sp, hd = q.shape
+    fn, ws_floats = _lib_bwd()
+    ws = torch.empty(ws_floats(bh, sp, hd), dtype=torch.float32,
+                     device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return fn(*(_ptr(t) for t in (q, k, v, dh, i_raw, f_raw, c0, n0, dc,
+                                      dn, dq, dk, dv, di, df, dc0, dn0, ws)),
+                  bh, sp, hd, 1.0 / math.sqrt(hd),
+                  int(q.dtype == torch.bfloat16), stream)
+
+
+def _bwd_sm90(q, k, v, dh, i_raw, f_raw, c0, n0, dc, dn, dq, dk, dv, di,
+              df, dc0, dn0) -> int:
+    """``csrc/mlstm_kernel_bwd_sm90.cu`` on tail-padded contiguous bf16
+    inputs, into the given outputs; returns its error code.  Its
+    workspace (bytes, 16-byte aligned parts) is allocated here for the
+    call."""
+    bh, sp, hd = q.shape
+    fn, ws_bytes = _lib_bwd_sm90()
+    ws = torch.empty(ws_bytes(bh, sp, hd), dtype=torch.uint8,
+                     device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return fn(*(_ptr(t) for t in (q, k, v, dh, i_raw, f_raw, c0, n0, dc,
+                                      dn, dq, dk, dv, di, df, dc0, dn0, ws)),
+                  bh, sp, hd, 1.0 / math.sqrt(hd), stream)
 
 
 mlstm_chunkwise_bwd.launches = 0

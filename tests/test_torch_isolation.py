@@ -51,7 +51,8 @@ def test_port_files_exist():
     for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",
                 "decode_attention.cu", "rglru_scan.cu", "mlstm_kernel.cu",
                 "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
-                "rglru_scan_bwd.cu", "mlstm_kernel_bwd.cu"):
+                "rglru_scan_bwd.cu", "mlstm_kernel_bwd.cu",
+                "mlstm_kernel_bwd_sm90.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file()
 

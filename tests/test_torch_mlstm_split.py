@@ -29,9 +29,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.mlstm_kernel import (CHUNK, SM90_MAX_HD,
-                                              mlstm_flat_plain, pad_tail,
-                                              uses_sm90)
+from repro_torch.kernels.mlstm_kernel import (CHUNK, SM90_BWD_MAX_HD,
+                                              SM90_MAX_HD, mlstm_flat_plain,
+                                              pad_tail, uses_sm90,
+                                              uses_sm90_bwd)
 
 TOL_H, TOL_CARRY = 2e-2, 1e-4
 
@@ -138,3 +139,16 @@ def test_kernel_chosen_by_dtype_and_head_dim(dtype, hd, want):
     """bf16 with hd a multiple of 8 up to the limit runs the tensor-core
     kernel; float32, and every other bf16 head dim, the first design."""
     assert uses_sm90(dtype, hd) is want
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 1024, True), (torch.bfloat16, SM90_BWD_MAX_HD, True),
+    (torch.bfloat16, 8, True), (torch.bfloat16, SM90_BWD_MAX_HD + 8, False),
+    (torch.bfloat16, 100, False), (torch.bfloat16, SM90_MAX_HD, False),
+    (torch.float32, 1024, False), (torch.float32, 64, False)])
+def test_backward_kernel_chosen_by_dtype_and_head_dim(dtype, hd, want):
+    """bf16 with hd a multiple of 8 up to the limit runs the tensor-core
+    backward; float32, and every other bf16 head dim, the first design.
+    The backward's limit lies below the forward's."""
+    assert uses_sm90_bwd(dtype, hd) is want
+    assert SM90_BWD_MAX_HD < SM90_MAX_HD and uses_sm90(dtype, hd) >= want
