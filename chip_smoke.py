@@ -65,8 +65,11 @@ One JSON line per phase:
 11b. flash_attention_bwd — the attention backward kernels vs their plain
    version (``attention_flat_bwd_plain``): bfloat16 on the tensor cores
    (``csrc/flash_attention_bwd_sm90.cu``; above hd 128 its columns and
-   query heads split, with a reduction kernel), float32 on the CUDA cores
-   (``csrc/flash_attention_bwd.cu``), each case with the source that ran;
+   query heads split, with a reduction kernel), float32 on the tensor
+   cores as split TF32 products (``csrc/flash_attention_bwd_tf32x3.cu``;
+   above hd 128 its query heads split the same way), each case with the
+   source and head parts that ran; a float32 row's bound at the TF32 peak
+   times three (the split's products), the CUDA-core bound beside it;
    at the trainer's shape (B=4, S=1,024, 32/8
    heads, hd 128, causal; bfloat16 and float32, timed beside SDPA's
    backward, two calls bit-equal), at the shapes the other families'
@@ -225,8 +228,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
-#: H100 SXM dense peaks (NVIDIA data sheet), operations per second
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: H100 SXM dense peaks (NVIDIA data sheet), operations per second: bf16
+#: on the tensor cores, float32 on the CUDA cores, and "tf32" on the
+#: tensor cores (494.7 TFLOP/s: the data sheet's 989.4 with sparsity,
+#: halved), where the float32 attention backward runs three TF32 products
+#: for each float32 one
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 494.7e12}
 #: kernel-vs-plain tolerance on the card, absolute, per dtype: bfloat16
 #: outputs are rounded once to bfloat16 (2^-8 relative on values of
 #: order 1); float32 differ only by the order of the float32 sums.  The
@@ -996,12 +1003,15 @@ def phase_check_interval(torch, np, dev, axis, tick: int,
 #: kernel, fp32 flash the CUDA-core one (one launch either way); decode
 #: runs the split kernel and the combine kernel
 FLASH_KERNELS = ("flash_sm90_kernel", "flash_kernel")
-#: the attention backward: the tensor-core kernels (bf16; above hd 128 with
-#: the query heads split, a third, the reduction of the parts) or the
-#: CUDA-core pair (float32); no name contains another
+#: the attention backward: the bf16 tensor-core kernels (above hd 128
+#: with the query heads split, a third, the reduction of the parts), the
+#: float32 split-TF32 ones (the same three roles), and the first design's
+#: CUDA-core pair (on no route; tools/flash_bwd_check.py times it); no
+#: name contains another
 FLASH_BWD_KERNELS = ("flash_bwd_sm90_q", "flash_bwd_sm90_kv",
-                     "flash_bwd_sm90_reduce", "flash_bwd_dq",
-                     "flash_bwd_dkdv")
+                     "flash_bwd_sm90_reduce", "flash_bwd_tf32x3_dq",
+                     "flash_bwd_tf32x3_dkdv", "flash_bwd_tf32x3_reduce",
+                     "flash_bwd_dq", "flash_bwd_dkdv")
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 #: (case, B, H, Hkv, Sq, Sk, hd, causal, window, timed): the serving
 #: path's prefill shape (pixtral_12b's too), a longer prompt,
@@ -1888,6 +1898,14 @@ def _kernel_counts():
 def _zero_kernel_counts():
     for w in _serving_wrappers().values():
         w.launches = 0
+    _serving_wrappers()["flash_attention_bwd"].launches_by_source = {}
+
+
+def _bwd_by_source() -> dict:
+    """The attention backward's launching calls by source since the
+    counts were last set to 0."""
+    return dict(_serving_wrappers()["flash_attention_bwd"]
+                .launches_by_source)
 
 
 def expected_launches(cfg, decode_steps: int) -> dict:
@@ -1951,6 +1969,17 @@ def expected_train_launches(cfg, n_steps: int) -> dict:
             "rglru_scan": fwd * n_rec, "rglru_scan_bwd": n_steps * n_rec,
             "mlstm_chunkwise": fwd * n_mlstm,
             "mlstm_chunkwise_bwd": n_steps * n_mlstm}
+
+
+def expected_bwd_sources(torch, cfg, n: int) -> dict:
+    """The attention backward's launching calls by source that ``n``
+    calls of a train step at ``cfg`` must give: all on the source the
+    route table picks for its dtype and head dim (float32: the split-TF32
+    kernel), none without attention."""
+    if not n:
+        return {}
+    from repro_torch.kernels.flash_attention import bwd_source
+    return {bwd_source(cfg.dtype, cfg.head_dim): n}
 
 
 def expected_train_sources(torch, cfg) -> dict:
@@ -2351,28 +2380,28 @@ def _hold_bwd(torch, got, want, dtype: str, where) -> tuple:
 
 
 def _bwd_route(torch, dt, hd) -> str:
-    """The source the backward's route table must pick."""
-    from repro_torch.kernels.flash_attention import uses_sm90_bwd
-    return ("flash_attention_bwd_sm90.cu" if uses_sm90_bwd(dt, hd)
-            else "flash_attention_bwd.cu")
+    """The source the backward's route table must pick: bf16 on
+    ``wgmma``, float32 as split TF32 ``mma.sync``."""
+    from repro_torch.kernels.flash_attention import bwd_source
+    return bwd_source(dt, hd)
 
 
 def phase_flash_attention_bwd(torch, np, dev):
     """The attention backward kernels (``csrc/flash_attention_bwd_sm90.cu``
-    for bf16, ``csrc/flash_attention_bwd.cu`` for float32)
+    for bf16, ``csrc/flash_attention_bwd_tf32x3.cu`` for float32)
     against their plain version (``attention_flat_bwd_plain``) on the
     card, each gradient on its own (``_hold_bwd``), each case on the
     source and head parts its dtype and shape pick; timed at the
     trainer's shape beside SDPA's backward (its forward done before the
     timed window); two calls bit-equal; and through ``ops.flash_attention``
-    under autograd on non-contiguous (B, S, H, hd) views."""
+    under autograd on non-contiguous (B, S, H, hd) views.  Returns the
+    first timed row of each dtype (bf16, float32)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (bwd_head_parts,
                                                      flash_attention_bshd,
-                                                     flash_attention_bwd,
-                                                     uses_sm90_bwd)
+                                                     flash_attention_bwd)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(11)
     main, edge = [], []
@@ -2395,8 +2424,7 @@ def phase_flash_attention_bwd(torch, np, dev):
                                      f"({dname}) ran {source}")
             # the blocks a group's query heads were split over
             parts = flash_attention_bwd.head_parts
-            if parts != (bwd_head_parts(b, h, hkv, sk, hd, n_sm)
-                         if uses_sm90_bwd(dt, hd) else 1):
+            if parts != bwd_head_parts(b, h, hkv, sk, hd, n_sm):
                 raise AssertionError(f"flash_attention_bwd: {name} "
                                      f"({dname}) ran {parts} head parts")
             again = flash_attention_bwd(q, k, v, o, do, causal=causal,
@@ -2438,7 +2466,10 @@ def phase_flash_attention_bwd(torch, np, dev):
             n_bytes = elt * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
             pairs = visible_pairs(sq, sk, causal, window)
             flops = 10 * hd * b * h * pairs
-            bound, by = attn_bound_ms(n_bytes, flops, dname)
+            # float32: three TF32 products for each float32 one
+            bound, by = (attn_bound_ms(n_bytes, 3 * flops, "tf32")
+                         if dt == torch.float32 else
+                         attn_bound_ms(n_bytes, flops, dname))
             main.append({
                 "case": name, "dtype": dname, "source": source, "B": b,
                 "H": h, "Hkv": hkv, "S": sq, "hd": hd, "head_parts": parts,
@@ -2480,7 +2511,8 @@ def phase_flash_attention_bwd(torch, np, dev):
                                "gradient and of the three",
          rel_norm_limit=ATTN_BWD_REL_NORM,
          shapes=main, edge=edge, strided=strided)
-    return main[0]
+    return tuple(next(r for r in main if r["dtype"] == d)
+                 for d in ("bfloat16", "float32"))
 
 
 def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
@@ -2549,6 +2581,11 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
             if sources != want_src:
                 raise AssertionError(f"{phase} step {step}: sources "
                                      f"{sources}, expected {want_src}")
+            by_source = _bwd_by_source()
+            if by_source != expected_bwd_sources(
+                    torch, cfg, want["flash_attention_bwd"]):
+                raise AssertionError(f"{phase} step {step}: attention "
+                                     f"backward by source {by_source}")
             gnorm = float(metrics["grad_norm"])
             if not (np.isfinite(loss) and np.isfinite(gnorm)):
                 raise AssertionError(f"{phase} step {step}: loss {loss}, "
@@ -2694,6 +2731,12 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
     want = expected_train_launches(cfg, n_steps)
     if counts != want:
         raise AssertionError(f"{phase}: launches {counts}, expected {want}")
+    # every float32 attention backward on the split-TF32 kernel
+    by_source = _bwd_by_source()
+    if by_source != expected_bwd_sources(torch, cfg,
+                                         want["flash_attention_bwd"]):
+        raise AssertionError(f"{phase}: attention backward by source "
+                             f"{by_source}")
     (pc, oc), (ph, oh) = states["card"], states["cpu"]
     worst = {}
     for part, a_tree, c_tree in (("params", pc, ph), ("m", oc["m"], oh["m"]),
@@ -2716,9 +2759,10 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
          dtype="float32", remat=cfg.remat, batch=batch, seq_len=seq_len,
          frontend_tokens=n_front, steps=rows,
          peak_lr=peak_lr, tolerance=tol, worst_relative_to_scale=worst,
-         launches=counts, seconds=seconds,
-         host_bytes_available_before=host_free)
-    return counts
+         launches=counts, attention_bwd_by_source=by_source,
+         seconds=seconds, host_bytes_available_before=host_free)
+    return {**counts, "flash_attention_bwd_tf32x3": by_source.get(
+        "flash_attention_bwd_tf32x3.cu", 0)}
 
 
 def host_bytes_available() -> int:
@@ -2904,6 +2948,15 @@ def main(argv=None) -> int:
                   "decode_attention", "rglru_scan", "rglru_scan_bwd",
                   "mlstm_chunkwise", "mlstm_chunkwise_bwd"):
         paths[kname] = {p: c[kname] for p, c in by_path.items() if c[kname]}
+    # the attention backward by source: the float32 split-TF32 kernel's
+    # launches (the parity phases, each holding every one to that source)
+    # and the bf16 kernel's, the rest
+    tf32 = {p: c["flash_attention_bwd_tf32x3"] for p, c in by_path.items()
+            if c.get("flash_attention_bwd_tf32x3")}
+    paths["flash_attention_bwd"] = {
+        p: n - tf32.get(p, 0)
+        for p, n in paths["flash_attention_bwd"].items() if n > tf32.get(p, 0)}
+    paths["flash_attention_bwd_tf32x3"] = tf32
     kernels = []
     for kname, row, src, tpu in (
             ("minskew", ms, "src/repro_torch/kernels/csrc/minskew.cu",
@@ -2913,10 +2966,15 @@ def main(argv=None) -> int:
             ("flash_attention", fa,
              "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:91"),
-            ("flash_attention_bwd", fb,
+            ("flash_attention_bwd", fb[0],
              "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
              "gradient of src/repro/kernels/flash_attention.py:91 (the JAX "
              "package differentiates its jnp attention; no Pallas kernel)"),
+            ("flash_attention_bwd_tf32x3", fb[1],
+             "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu",
+             "gradient of src/repro/kernels/flash_attention.py:91 in "
+             "float32 (the JAX package differentiates its jnp attention; "
+             "no Pallas kernel)"),
             ("decode_attention", da,
              "src/repro_torch/kernels/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:74"),

@@ -1,12 +1,12 @@
 // The gradient of blockwise (flash) attention for Hopper (sm_90a), float32
 // FMAs on the CUDA cores, bfloat16 or float32 tensors.
 //
-// Who calls it.  The wrapper (repro_torch.kernels.flash_attention) routes
-// float32 here, since the parity runs need float32 arithmetic (TF32 on the
-// tensor cores would change it); every bf16 call goes to
-// flash_attention_bwd_sm90.cu.  Its bf16 mode stays for
-// tools/flash_bwd_check.py, which times it as the first design beside the
-// tensor-core kernels.
+// Who calls it.  No route of the wrapper (repro_torch.kernels.
+// flash_attention) reaches it: bf16 calls go to flash_attention_bwd_sm90.cu
+// and float32 calls to flash_attention_bwd_tf32x3.cu (split TF32 on the
+// tensor cores, float32 accuracy).  It stays as the first design:
+// flash_attention._bwd_cuda_cores launches it, in either dtype, for
+// tools/flash_bwd_check.py, which times it beside the tensor-core kernels.
 //
 // What it replaces.  The JAX package has no backward Pallas kernel: its
 // models call the jnp attention (src/repro/models/attention.py:40) and

@@ -7,6 +7,8 @@
 //   (decode_attention.cu, mlstm_kernel_sm90.cu);
 // - ldmatrix and mma.sync m16n8k16 bf16 products with fp32 accumulators
 //   (mlstm_kernel_sm90.cu);
+// - the tf32 rounding and hi/lo split, and mma.sync m16n8k8 tf32 products
+//   with fp32 accumulators (flash_attention_bwd_tf32x3.cu);
 // - wgmma: shared-memory matrix descriptors of operands under the 128-byte
 //   swizzle (what TMA's SWIZZLE_128B writes) and the m64nNk16 bf16
 //   products with fp32 accumulators (flash_attention_sm90.cu);
@@ -73,6 +75,37 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
                                                uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (cvt.rna: to nearest, ties away from zero, 10 mantissa
+// bits; the low 13 bits of the result are 0).  mma.sync with .tf32 operands
+// ignores those 13 bits, so an operand not rounded here would be truncated.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo + (what lo drops, about 2^-22 |x|): hi = tf32(x),
+// lo = tf32(x - hi), the split of CUTLASS's OpMultiplyAddFastF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+// D (16 x 8, fp32) += A (16 x 8, row) * B (8 x 8, col), tf32.  With
+// g = lane / 4, t = lane % 4: a = {(g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4)}, b = {(t, g), (t + 4, g)} (row k, column n), d = {(g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}: unlike m16n8k16's, an
+// accumulator's columns (2t, 2t + 1) are not the A columns (t, t + 4) of
+// the same thread.  Not volatile: the compiler may interleave independent
+// products.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

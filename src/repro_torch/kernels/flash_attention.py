@@ -22,22 +22,30 @@ pair and head).  Two kernels, split by dtype:
 
 The gradient, bound through :class:`FlashAttention`, a
 ``torch.autograd.Function`` whose backward calls
-:func:`flash_attention_bwd`; two sources, chosen by dtype and head dim
-only (:func:`uses_sm90_bwd`; see each source's head comment):
+:func:`flash_attention_bwd`; two sources, chosen by dtype alone, at every
+head dim the forward takes (:func:`bwd_source`; see each source's head
+comment):
 
-- bfloat16 with hd a multiple of 8 up to ``SM90_BWD_MAX_HD`` (256):
-  ``csrc/flash_attention_bwd_sm90.cu``, every product on the tensor cores
-  (``wgmma``) with its tiles loaded by TMA through the tensors' strides;
-  above hd 128 a block's two consumers split the head-dim columns, and a
-  group's query heads are split over :func:`bwd_head_parts` blocks whose
-  float32 partial dk and dv a third kernel sums in a fixed order;
-- float32: ``csrc/flash_attention_bwd.cu``, float32 FMAs on the CUDA
-  cores, which keeps the float32 arithmetic of the parity runs.
+- bfloat16: ``csrc/flash_attention_bwd_sm90.cu``, every product on the
+  tensor cores (``wgmma``) with its tiles loaded by TMA through the
+  tensors' strides; above hd 128 a block's two consumers split the
+  head-dim columns, and a group's query heads are split over
+  :func:`bwd_head_parts` blocks whose float32 partial dk and dv a third
+  kernel sums in a fixed order;
+- float32: ``csrc/flash_attention_bwd_tf32x3.cu``, every product on the
+  tensor cores as three TF32 ``mma.sync`` of split operands (hi = tf32(x),
+  lo = tf32(x - hi): lo hi, hi lo, hi hi), which keeps float32 accuracy
+  for the parity runs; tiles staged by ``cp.async`` through the tensors'
+  strides; above hd 128 the same head split and reduction.
 
-Each is deterministic (dq, then dk and dv), no atomics.
+``csrc/flash_attention_bwd.cu`` (float32 FMAs on the CUDA cores, either
+dtype) is the first design and on no route: :func:`_bwd_cuda_cores`
+launches it for ``tools/flash_bwd_check.py``, which times it beside the
+others.  Each is deterministic (dq, then dk and dv), no atomics.
 ``flash_attention_bwd.source`` names the source of the last call that
 launched one, ``flash_attention_bwd.head_parts`` the head parts it
-launched with (1 on the float32 source).  The (B, S, H, hd) entry point goes through it when grad
+launched with, ``flash_attention_bwd.launches_by_source`` the launching
+calls by source.  The (B, S, H, hd) entry point goes through it when grad
 mode is on and an input requires grad;
 otherwise (serving, under ``torch.inference_mode``) nothing is saved and
 the launches are the forward's alone.  The flat entry point has no
@@ -50,7 +58,7 @@ tensor they launch a kernel or raise.  Both paths check dtypes and
 shapes first.  ``flash_attention_flat.launches`` counts the launches of
 either forward kernel from either entry point,
 ``flash_attention_bwd.launches`` the calls that launched either
-backward.
+backward (``launches_by_source`` splits them).
 """
 from __future__ import annotations
 
@@ -74,6 +82,8 @@ BWD_SM90_ROWS = 128           # the bf16 backward's lse/D scratch unit
 MAX_GRID_YZ = 65535
 ERR_ENCODE = 20000            # csrc/flash_attention_sm90*.cu: + a CUresult
 SM90_BWD_MAX_HD = 256         # csrc/flash_attention_bwd_sm90.cu
+BWD_SM90 = "flash_attention_bwd_sm90.cu"      # bf16
+BWD_TF32X3 = "flash_attention_bwd_tf32x3.cu"  # float32
 SM90_BWD_WIDE_HD = 128        # above it: 64-key blocks, heads split
 SM90_BWD_WIDE_KEYS = 64       # keys a dk/dv block owns above that
 
@@ -126,21 +136,43 @@ def _lib_bwd_sm90():
     return fn
 
 
-def uses_sm90_bwd(dtype: torch.dtype, hd: int) -> bool:
-    """Whether a CUDA call at this dtype and head dim runs
-    ``csrc/flash_attention_bwd_sm90.cu`` (bf16 at every head dim the
-    forward takes) or ``csrc/flash_attention_bwd.cu`` (float32)."""
-    return (dtype == torch.bfloat16 and hd % 8 == 0
-            and 8 <= hd <= SM90_BWD_MAX_HD)
+@functools.lru_cache(maxsize=None)
+def _lib_bwd_tf32x3():
+    """The float32 tensor-core backward's launcher, set up once; checks
+    that the source's keys a dk/dv block are the head split's."""
+    lib = _build.load("flash_attention_bwd_tf32x3")
+    lib.flash_attention_bwd_tf32x3_rows.restype = _I
+    rows = lib.flash_attention_bwd_tf32x3_rows()
+    if rows != SM90_BWD_WIDE_KEYS:
+        raise RuntimeError(f"csrc/flash_attention_bwd_tf32x3.cu has "
+                           f"{rows}-key blocks, the head split expects "
+                           f"{SM90_BWD_WIDE_KEYS}")
+    fn = lib.flash_attention_bwd_tf32x3_launch
+    fn.argtypes = [*([_P] * 11), *([_L] * 15), *([_I] * 9),
+                   ctypes.c_double, _P]
+    fn.restype = _I
+    return fn
+
+
+def bwd_source(dtype: torch.dtype, hd: int) -> str | None:
+    """The source a CUDA call of :func:`flash_attention_bwd` at this dtype
+    and head dim runs: ``flash_attention_bwd_sm90.cu`` for bf16,
+    ``flash_attention_bwd_tf32x3.cu`` for float32, at every head dim the
+    forward takes (a multiple of 8 up to 256); None for a pair no kernel
+    takes (the wrapper's checks refuse it first)."""
+    if hd % 8 != 0 or not 8 <= hd <= SM90_BWD_MAX_HD:
+        return None
+    return {torch.bfloat16: BWD_SM90, torch.float32: BWD_TF32X3}.get(dtype)
 
 
 def bwd_head_parts(b: int, h: int, hkv: int, sk: int, hd: int,
                    n_sm: int) -> int:
-    """The blocks over which ``csrc/flash_attention_bwd_sm90.cu`` splits
-    each group's query heads for dk and dv (the rule of its head
-    comment): 1 up to hd 128 and at Sk = 0; above, with ``base`` = Hkv B
-    ceil(Sk / 64) blocks, round(2 ``n_sm`` / base) clamped to 1 .. H /
-    Hkv, about two blocks an SM."""
+    """The blocks over which ``csrc/flash_attention_bwd_sm90.cu`` and
+    ``csrc/flash_attention_bwd_tf32x3.cu`` split each group's query heads
+    for dk and dv (the rule of their head comments; both have 64-key
+    blocks above hd 128): 1 up to hd 128 and at Sk = 0; above, with
+    ``base`` = Hkv B ceil(Sk / 64) blocks, round(2 ``n_sm`` / base)
+    clamped to 1 .. H / Hkv, about two blocks an SM."""
     if hd <= SM90_BWD_WIDE_HD or sk == 0:
         return 1
     base = hkv * b * -(-sk // SM90_BWD_WIDE_KEYS)
@@ -209,7 +241,7 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "flash_attention_flat has no gradient on the card; call the "
             "(B, S, H, hd) entry point (ops.flash_attention), whose "
-            "backward is csrc/flash_attention_bwd.cu")
+            "backward is flash_attention_bwd")
     if q.dtype == torch.float32:
         return _launch_f32(q, k, v, causal, window)
     out = torch.empty_like(q)
@@ -256,10 +288,12 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself if the bf16 kernel can read it in place, else a
-    contiguous copy."""
+    """``t`` itself if a kernel that copies 16 bytes at a time (TMA,
+    ``cp.async``) can read it in place, else a contiguous copy."""
+    per = 16 // t.element_size()
     ok = (t.stride(3) == 1
-          and all(t.stride(i) > 0 and t.stride(i) % 8 == 0 for i in range(3))
+          and all(t.stride(i) > 0 and t.stride(i) % per == 0
+                  for i in range(3))
           and t.data_ptr() % 16 == 0)
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
@@ -356,11 +390,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group; Sk = 0 gives dq = 0.
 
     On CPU tensors: :func:`repro_torch.kernels.ref.attention_flat_bwd_plain`
-    on flat copies.  On CUDA tensors: ``csrc/flash_attention_bwd_sm90.cu``
-    for bfloat16 (:func:`uses_sm90_bwd`), through the tensors' strides (a
-    tensor TMA cannot read in place is first copied, as the forward
-    does), ``csrc/flash_attention_bwd.cu`` for float32 (a tensor whose
-    innermost stride is not 1 is first copied); or raise."""
+    on flat copies.  On CUDA tensors, the source :func:`bwd_source` names,
+    through the tensors' strides (a tensor that the kernel's 16-byte
+    copies cannot read in place is first copied, as the forward does):
+    ``csrc/flash_attention_bwd_sm90.cu`` for bfloat16,
+    ``csrc/flash_attention_bwd_tf32x3.cu`` for float32; or raise."""
     _check_bshd(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -387,17 +421,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(dk)
     if b == 0:
         return dq, dk, dv
-    if uses_sm90_bwd(q.dtype, hd):
-        source = "flash_attention_bwd_sm90.cu"
-        parts = _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window)
-    else:
-        source = "flash_attention_bwd.cu"
-        parts = int(_bwd_cuda_cores(q, k, v, o, do, dq, dk, dv, causal,
-                                    window))
+    source = bwd_source(q.dtype, hd)
+    launch = _bwd_sm90 if source == BWD_SM90 else _bwd_tf32x3
+    parts = launch(q, k, v, o, do, dq, dk, dv, causal, window)
     if parts:
         flash_attention_bwd.launches += 1
         flash_attention_bwd.source = source
         flash_attention_bwd.head_parts = parts
+        by_source = flash_attention_bwd.launches_by_source
+        by_source[source] = by_source.get(source, 0) + 1
     return dq, dk, dv
 
 
@@ -439,9 +471,43 @@ def _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window,
     return parts
 
 
+def _bwd_tf32x3(q, k, v, o, do, dq, dk, dv, causal, window) -> int:
+    """``csrc/flash_attention_bwd_tf32x3.cu`` into dq, dk, dv (float32,
+    hd a multiple of 8 up to 256); returns the head parts it launched with
+    (:func:`bwd_head_parts`'), 0 where there was nothing to launch.  With
+    the heads split, the float32 partials of dk and dv go to a workspace
+    allocated here for the call."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if sq == 0 and sk == 0:
+        return 0
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    parts = bwd_head_parts(b, h, hkv, sk, hd, _sm_count(q.device))
+    ws = torch.empty((2 * parts * b * sk * hkv * hd if parts > 1 else 0,),
+                     dtype=torch.float32, device=q.device)
+    strides = [st for t in (q, k, v, o, do) for st in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib_bwd_tf32x3()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), ws.data_ptr() if parts > 1
+            else None, *strides, b, h, hkv, sq, sk, hd, int(causal),
+            int(window), parts, 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed "
+                           f"(flash_attention_bwd_tf32x3.cu): CUDA error "
+                           f"{err}")
+    return parts
+
+
 def _bwd_cuda_cores(q, k, v, o, do, dq, dk, dv, causal, window) -> bool:
-    """``csrc/flash_attention_bwd.cu`` into contiguous dq, dk, dv (either
-    dtype, any head dim the forward takes)."""
+    """``csrc/flash_attention_bwd.cu``, the first design, into contiguous
+    dq, dk, dv (either dtype, any head dim the forward takes); on no route
+    of :func:`flash_attention_bwd`: ``tools/flash_bwd_check.py`` times
+    it."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
@@ -467,3 +533,4 @@ def _bwd_cuda_cores(q, k, v, o, do, dq, dk, dv, causal, window) -> bool:
 flash_attention_bwd.launches = 0
 flash_attention_bwd.source = None
 flash_attention_bwd.head_parts = None
+flash_attention_bwd.launches_by_source = {}

@@ -420,12 +420,11 @@ def test_flash_bwd_kernel_vs_plain(dev, dtype, b, h, hkv, sq, sk, hd,
 
 
 def _bwd_source(dtype, hd):
-    """The source the backward's route table (``uses_sm90_bwd``) picks:
-    bf16 on the tensor cores, float32 on the CUDA cores."""
-    from repro_torch.kernels.flash_attention import uses_sm90_bwd
-    if uses_sm90_bwd(dtype, hd):
-        return "flash_attention_bwd_sm90.cu"
-    return "flash_attention_bwd.cu"
+    """The source the backward's route table (``bwd_source``) picks: bf16
+    on ``wgmma``, float32 as split TF32 ``mma.sync``, both on the tensor
+    cores."""
+    from repro_torch.kernels.flash_attention import bwd_source
+    return bwd_source(dtype, hd)
 
 
 # (B, H, Hkv, Sq, Sk, hd, causal, window) of the bf16 tensor-core backward:
@@ -481,6 +480,40 @@ def test_flash_bwd_sm90_vs_plain(dev, b, h, hkv, sq, sk, hd, causal,
         assert a.shape == w.shape and torch.equal(a, c)
         if w.numel():
             _close(a, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal,window", FLASH_BWD_SM90)
+def test_flash_bwd_tf32x3_vs_plain(dev, b, h, hkv, sq, sk, hd, causal,
+                                   window):
+    """The float32 backward (``csrc/flash_attention_bwd_tf32x3.cu``, split
+    TF32 on the tensor cores) at every shape of the bf16 cases: each
+    gradient within 1e-4 x max(1, its largest |plain value|) and
+    ``||got - want|| / ||want||`` within 1e-4 of
+    ``attention_flat_bwd_plain``, one launch a call, two calls bit-equal,
+    and the source and head parts that ran."""
+    from repro_torch.kernels.flash_attention import (bwd_head_parts,
+                                                     flash_attention_bshd,
+                                                     flash_attention_bwd)
+    q, k, v, do = _flash_bwd_case(dev, torch.float32, b, h, hkv, sq, sk,
+                                  hd, seed=10)
+    with torch.no_grad():
+        o = flash_attention_bshd(q, k, v, causal=causal, window=window)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.source == "flash_attention_bwd_tf32x3.cu"
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert flash_attention_bwd.head_parts == bwd_head_parts(b, h, hkv, sk,
+                                                            hd, n_sm)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    for a, c, w in zip(got, again, _flash_bwd_plain(q, k, v, o, do, causal,
+                                                    window)):
+        assert a.shape == w.shape and torch.equal(a, c)
+        if w.numel():
+            _close(a, w)
+            rel = float(torch.linalg.vector_norm(a - w)
+                        / torch.linalg.vector_norm(w).clamp_min(1e-30))
+            assert rel <= REL_NORM[torch.float32], rel
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -18,9 +18,12 @@ order (the plain backward uses the forward's output in D = dO . o,
 autograd and JAX differentiate through the softmax).
 
 The bfloat16 tensor-core backward (``csrc/flash_attention_bwd_sm90.cu``)
-runs only on the card; here its route table (``uses_sm90_bwd``: dtype
-and head dim alone), the rule that splits a group's query heads above hd
-128 (``bwd_head_parts``) and its arithmetic: :func:`_sm90_emulation`
+runs only on the card; here the backward's route table (``bwd_source``:
+dtype and head dim alone; float32 takes
+``csrc/flash_attention_bwd_tf32x3.cu``, whose arithmetic
+``tests/test_torch_flash_bwd_tf32x3.py`` rebuilds), the rule that splits
+a group's query heads above hd 128 (``bwd_head_parts``) and its
+arithmetic: :func:`_sm90_emulation`
 rebuilds the kernel's roundings in plain torch (bf16 inputs, float32
 sums, lse by the online max and sum over 64-key tiles in base 2, P and dS
 rounded to bf16 before the three accumulating products; above hd 128,
@@ -42,13 +45,14 @@ import torch
 
 from repro.models.attention import multi_head_attention as jattention
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.flash_attention import (BWD_SM90_ROWS,
+from repro_torch.kernels.flash_attention import (BWD_SM90, BWD_SM90_ROWS,
+                                                 BWD_TF32X3,
                                                  SM90_BWD_WIDE_HD,
                                                  SM90_BWD_WIDE_KEYS,
                                                  FlashAttention,
                                                  bwd_head_parts,
-                                                 flash_attention_bwd,
-                                                 uses_sm90_bwd)
+                                                 bwd_source,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.ref import (attention_flat_bwd_plain,
                                      attention_flat_plain)
 
@@ -197,17 +201,18 @@ BF16_TOL = 2e-2
 
 
 @pytest.mark.parametrize("dtype,hd,want", [
-    (torch.bfloat16, 8, True), (torch.bfloat16, 24, True),
-    (torch.bfloat16, 40, True), (torch.bfloat16, 64, True),
-    (torch.bfloat16, 96, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 136, True), (torch.bfloat16, 192, True),
-    (torch.bfloat16, 256, True), (torch.bfloat16, 12, False),
-    (torch.float32, 64, False), (torch.float32, 128, False),
-    (torch.float32, 256, False)])
+    (torch.bfloat16, 8, BWD_SM90), (torch.bfloat16, 24, BWD_SM90),
+    (torch.bfloat16, 40, BWD_SM90), (torch.bfloat16, 64, BWD_SM90),
+    (torch.bfloat16, 96, BWD_SM90), (torch.bfloat16, 128, BWD_SM90),
+    (torch.bfloat16, 136, BWD_SM90), (torch.bfloat16, 192, BWD_SM90),
+    (torch.bfloat16, 256, BWD_SM90), (torch.bfloat16, 12, None),
+    (torch.float32, 64, BWD_TF32X3), (torch.float32, 128, BWD_TF32X3),
+    (torch.float32, 256, BWD_TF32X3)])
 def test_sm90_backward_route_table(dtype, hd, want):
-    """bf16 at hd a multiple of 8 up to 256 takes the tensor-core kernel;
-    float32 (the parity runs) the CUDA-core one."""
-    assert uses_sm90_bwd(dtype, hd) is want
+    """bf16 at hd a multiple of 8 up to 256 takes the ``wgmma`` kernel;
+    float32 (the parity runs) the split-TF32 one, ``mma.sync`` on the
+    tensor cores; a head dim the forward refuses, none."""
+    assert bwd_source(dtype, hd) == want
 
 
 def test_sm90_backward_is_built_and_sized():
