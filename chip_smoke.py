@@ -10,10 +10,10 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — the thirteen CUDA sources (the six kernels, the two attention
-   backwards, the two recurrences' backwards and the empty
-   ``launch_floor`` kernel) compiled from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` each, in parallel);
+2. build — every CUDA source of ``_build.SOURCES`` (sixteen: the
+   forward kernels, the attention and recurrences' backwards, first
+   designs included, and the empty ``launch_floor`` kernel) compiled from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
 3. launch_floor — an empty kernel launched through the same ctypes
    route, timed: what one launch costs, beside every bytes bound;
 4. minskew — kernel vs plain version on the card, bit-equal, timed at
@@ -116,10 +116,14 @@ One JSON line per phase:
    that ran;
 14b. mlstm_chunkwise_bwd — the backward kernels
    (``csrc/mlstm_kernel_bwd_sm90.cu`` for bfloat16 on the tensor cores,
-   ``csrc/mlstm_kernel_bwd.cu`` for float32 and other bf16 head dims) vs
-   their plain version (``mlstm_chunkwise_bwd_plain``) at xlstm's train
-   shape (BH=16, S=1,024, hd=1,024), bfloat16 and float32, timed (in bf16
-   beside the first design on the same tensors); S = 200 (a padded tail),
+   ``csrc/mlstm_kernel_bwd_tf32x3.cu`` for float32 on the tensor cores as
+   split TF32 products, ``csrc/mlstm_kernel_bwd.cu`` for the head dims
+   neither takes) vs their plain version (``mlstm_chunkwise_bwd_plain``)
+   at xlstm's train shape (BH=16, S=1,024, hd=1,024) and
+   train_parity_xlstm's (BH=8, S=200, hd=1,024), bfloat16 and float32,
+   timed beside the first design on the same tensors (a float32 row's
+   bound at the TF32 peak times three, the CUDA-core bound beside it);
+   S = 200 (a padded tail),
    an initial (C, n), gradients of the final (C, n), the forward phase's
    small shapes and a bf16 head dim off the tensor-core route; each
    gradient by its max abs error and its relative norm, the source its
@@ -1458,17 +1462,26 @@ def phase_decode_attention(torch, np, dev):
 
 RGLRU_KERNELS = ("rglru_chained_kernel",)
 RGLRU_BWD_KERNELS = ("rglru_bwd_chained_kernel",)
-#: the six kernels of csrc/mlstm_kernel_bwd.cu (float32, and bf16 off the
-#: tensor-core route) and of csrc/mlstm_kernel_bwd_sm90.cu (bf16), each
-#: launched once a call of its route; no name of one list contains a name
-#: of the other
+#: the six kernels of csrc/mlstm_kernel_bwd.cu (head dims off the
+#: tensor-core routes), of csrc/mlstm_kernel_bwd_sm90.cu (bf16) and of
+#: csrc/mlstm_kernel_bwd_tf32x3.cu (float32), each launched once a call of
+#: its route; no name of one list contains a name of another
 MLSTM_BWD_KERNELS_CUDA_CORES = ("mlstm_bwd_states", "mlstm_bwd_u",
                                 "mlstm_bwd_intra", "mlstm_bwd_walk",
                                 "mlstm_bwd_dk", "mlstm_bwd_gates")
 MLSTM_BWD_KERNELS_SM90 = ("mlstm_bwd_sm90_scores", "mlstm_bwd_sm90_den",
                           "mlstm_bwd_sm90_dwalk", "mlstm_bwd_sm90_cwalk",
                           "mlstm_bwd_sm90_intra", "mlstm_bwd_sm90_gates")
-MLSTM_BWD_KERNELS = MLSTM_BWD_KERNELS_CUDA_CORES + MLSTM_BWD_KERNELS_SM90
+MLSTM_BWD_KERNELS_TF32X3 = ("mlstm_bwd_tf32x3_scores", "mlstm_bwd_tf32x3_den",
+                            "mlstm_bwd_tf32x3_dwalk", "mlstm_bwd_tf32x3_cwalk",
+                            "mlstm_bwd_tf32x3_intra", "mlstm_bwd_tf32x3_gates")
+MLSTM_BWD_KERNELS = (MLSTM_BWD_KERNELS_CUDA_CORES + MLSTM_BWD_KERNELS_SM90
+                     + MLSTM_BWD_KERNELS_TF32X3)
+#: each backward source's kernels
+MLSTM_BWD_KERNELS_BY_SOURCE = {
+    "mlstm_kernel_bwd.cu": MLSTM_BWD_KERNELS_CUDA_CORES,
+    "mlstm_kernel_bwd_sm90.cu": MLSTM_BWD_KERNELS_SM90,
+    "mlstm_kernel_bwd_tf32x3.cu": MLSTM_BWD_KERNELS_TF32X3}
 #: the device kernels of both routes: mlstm_kernel.cu's and
 #: mlstm_kernel_sm90.cu's
 MLSTM_KERNELS = ("scores_kernel", "carry_kernel", "mlstm_scores_sm90",
@@ -1608,11 +1621,12 @@ RGLRU_BWD_CASES = [(4, 1024, 4096, False, True), (4, 1024, 4096, True, False),
                    (3, 1, 4096, True, False), (2, 515, 4099, True, False),
                    (1, 300, 32, True, False), (2, 16, 8, True, False)]
 #: (BH, S, hd, initial carry, final-state gradients, timed) for the mLSTM
-#: backward, both dtypes: xlstm's train shape (timed), S = 200 (a padded
-#: tail) with both carries, each carry alone, MLSTM_CASES' small shapes,
-#: and hd 100, which bf16 runs on the first design (off the tensor-core
-#: route: not a multiple of 8)
+#: backward, both dtypes: xlstm's train shape and train_parity_xlstm's
+#: (timed), S = 200 (a padded tail) with both carries, each carry alone,
+#: MLSTM_CASES' small shapes, and hd 100, which both dtypes run on the
+#: first design (off the tensor-core routes: not a multiple of 8)
 MLSTM_BWD_CASES = [(16, 1024, 1024, False, False, True),
+                   (8, 200, 1024, False, False, True),
                    (4, 200, 1024, True, True, False),
                    (2, 128, 32, True, False, False),
                    (4, 256, 64, False, True, False),
@@ -1689,15 +1703,19 @@ def mlstm_bwd_work(bh: int, s: int, hd: int, elt: int, carry_in: bool,
     return n_bytes, bh * s * (10 * hd * hd + 10 * CHUNK * hd)
 
 
-def mlstm_bwd_stored_bytes(bh: int, s: int, hd: int, sm90: bool) -> int:
+def mlstm_bwd_stored_bytes(bh: int, s: int, hd: int, source: str) -> int:
     """Bytes a backward design writes to its workspace and reads back
-    once: the tensor-core design's dC' of every chunk in bf16 and u, y and
-    the chunk-internal dk in float32; the first design's chunk-start
-    states in float32 (overwritten by dC' and read again)."""
-    from repro_torch.kernels.mlstm_kernel import CHUNK
-    nc = -(-s // CHUNK)
-    if sm90:
-        return 2 * (2 * bh * nc * hd * hd + 3 * 4 * bh * nc * CHUNK * hd)
+    once: the tensor-core designs' dC' of every chunk (bf16 in the bf16
+    design, float32 in the float32 one) and u, y and the chunk-internal dk
+    in float32; the first design's chunk-start states in float32
+    (overwritten by dC' and read again)."""
+    from repro_torch.kernels import mlstm_kernel as mk
+    nc = -(-s // mk.CHUNK)
+    rows = 3 * 4 * bh * nc * mk.CHUNK * hd
+    if source == mk.BWD_SM90:
+        return 2 * (2 * bh * nc * hd * hd + rows)
+    if source == mk.BWD_TF32X3:
+        return 2 * (4 * bh * nc * hd * hd + rows)
     return 2 * 4 * bh * nc * hd * hd
 
 
@@ -1721,21 +1739,46 @@ def _hold_mlstm_bwd(torch, got, want, dtype: str, where) -> tuple:
     return errs, rels
 
 
+def _mlstm_bwd_first_design(torch, mk, args):
+    """A call of the first design (``csrc/mlstm_kernel_bwd.cu``) on the
+    same inputs, tail-padded as the wrapper pads them, into outputs made
+    once."""
+    q, k, v, ig, fg, c0, n0, dh, dc, dn = args
+    qp, kp, vp, ip, fp = mk.pad_tail(q, k, v, ig, fg)
+    dhp = torch.zeros_like(qp)
+    dhp[:, :q.shape[1]] = dh
+    bh, hd = q.shape[0], q.shape[2]
+    outs = [torch.empty_like(x) for x in (qp, kp, vp, ip, fp)] + [
+        torch.empty(bh, hd, hd, device=q.device),
+        torch.empty(bh, hd, device=q.device)]
+
+    def first():
+        err = mk._bwd_cuda_cores(qp, kp, vp, dhp, ip, fp, c0, n0, dc, dn,
+                                 *outs)
+        if err:
+            raise RuntimeError(f"mlstm_kernel_bwd.cu: CUDA error {err}")
+    return first
+
+
 def phase_mlstm_chunkwise_bwd(torch, np, dev):
-    """The backward kernels (``csrc/mlstm_kernel_bwd_sm90.cu``: bf16 on
-    the tensor cores at hd a multiple of 8 up to ``SM90_BWD_MAX_HD``;
-    ``csrc/mlstm_kernel_bwd.cu``: float32 sums on the CUDA cores, for
-    float32 and every other bf16 head dim) against their plain version
-    (``mlstm_chunkwise_bwd_plain``) on the card: each of dq, dk, dv (in
+    """The backward kernels against their plain version
+    (``mlstm_chunkwise_bwd_plain``) on the card, each case on the source
+    ``mlstm_kernel.bwd_source`` picks for its dtype and hd
+    (``csrc/mlstm_kernel_bwd_sm90.cu``: bf16 on the tensor cores;
+    ``csrc/mlstm_kernel_bwd_tf32x3.cu``: float32 on the tensor cores as
+    split TF32 products; ``csrc/mlstm_kernel_bwd.cu``: float32 sums on the
+    CUDA cores, for the head dims neither takes): each of dq, dk, dv (in
     q's dtype), di_raw, df_raw, dc0 and dn0 within ``ATTN_TOL`` of the
     dtype x max(1, its largest |plain value|) and by
-    ||got - want|| / ||want|| within ``ATTN_BWD_REL_NORM``; every case on
-    the source its dtype and hd pick, twice and bit-equal, an ``i_raw``
-    above the cap passing no gradient; timed at xlstm's train shape, and
-    in bf16 the first design beside it on the same tensors.  The bound is
-    the function's work at the peak of the route that runs (bf16 on the
-    tensor cores, float32 on the CUDA cores); the bytes its design stores
-    and reads back are beside it.  No PyTorch call computes it."""
+    ||got - want|| / ||want|| within ``ATTN_BWD_REL_NORM``; every case
+    twice and bit-equal, an ``i_raw`` above the cap passing no gradient;
+    timed at the timed shapes, the first design beside the tensor-core
+    source on the same tensors.  The bound is the function's work at the
+    peak of the route that runs (bf16 on the tensor cores; float32 as
+    three TF32 products each on the tensor cores, the CUDA-core bound
+    beside it); the bytes its design stores and reads back are beside it.
+    No PyTorch call computes it.  Returns the first timed row of each
+    dtype (bf16, float32)."""
     from repro_torch.kernels import mlstm_kernel as mk
     from repro_torch.kernels.ref import I_CAP, mlstm_chunkwise_bwd_plain
     g = torch.Generator(device=dev).manual_seed(14)
@@ -1762,9 +1805,7 @@ def phase_mlstm_chunkwise_bwd(torch, np, dev):
             again = flat(mk.mlstm_chunkwise_bwd(*args))
             want = flat(mlstm_chunkwise_bwd_plain(*args))
             torch.cuda.synchronize()
-            sm90 = mk.uses_sm90_bwd(dt, hd)
-            source = ("mlstm_kernel_bwd_sm90.cu" if sm90
-                      else "mlstm_kernel_bwd.cu")
+            source = mk.bwd_source(dt, hd)
             if (mk.mlstm_chunkwise_bwd.source != source
                     or mk.mlstm_chunkwise_bwd.launches != before + 2):
                 raise AssertionError(
@@ -1791,43 +1832,37 @@ def phase_mlstm_chunkwise_bwd(torch, np, dev):
                 continue
             n_bytes, flops = mlstm_bwd_work(bh, s, hd, q.element_size(),
                                             carry, final)
-            bound, by = attn_bound_ms(n_bytes, flops,
-                                      "bfloat16" if sm90 else "float32")
-            stored = mlstm_bwd_stored_bytes(bh, s, hd, sm90)
+            # float32 on the tensor cores: three TF32 products for each
+            bound, by = (attn_bound_ms(n_bytes, 3 * flops, "tf32")
+                         if source == mk.BWD_TF32X3 else
+                         attn_bound_ms(n_bytes, flops, dname))
+            stored = mlstm_bwd_stored_bytes(bh, s, hd, source)
             row = {**case, **_timings(
                 torch, lambda: mk.mlstm_chunkwise_bwd(*args),
                 lambda: mlstm_chunkwise_bwd_plain(*args),
-                MLSTM_BWD_KERNELS_SM90 if sm90
-                else MLSTM_BWD_KERNELS_CUDA_CORES, 5, plain_iters=3),
+                MLSTM_BWD_KERNELS_BY_SOURCE[source], 5, plain_iters=3),
                 "bound_ms": bound, "bound_by": by, "flops": flops,
                 "bytes": n_bytes, "library_ms": None,
                 "stored_bytes": stored,
                 "stored_bytes_bound_ms": bound_ms(stored + n_bytes),
                 "bf16_tensor_core_bound_ms": flops / PEAK_FLOPS["bfloat16"]
+                * 1e3,
+                "fp32_cuda_core_bound_ms": flops / PEAK_FLOPS["float32"]
                 * 1e3}
-            if sm90:  # the first design on the same bf16 tensors
-                outs = [torch.empty_like(x) for x in (q, k, v, ig, fg)] + [
-                    torch.empty(bh, hd, hd, device=dev),
-                    torch.empty(bh, hd, device=dev)]
-
-                def first():  # S is a multiple of the chunk: no padding
-                    err = mk._bwd_cuda_cores(q, k, v, dh, ig, fg, c0, n0, dc,
-                                             dn, *outs)
-                    if err:
-                        raise RuntimeError(f"mlstm_kernel_bwd.cu: CUDA "
-                                           f"error {err}")
-                first_t = _kernel_timings(torch, first,
-                                          MLSTM_BWD_KERNELS_CUDA_CORES, 5)
+            if source != mk.BWD_CUDA_CORES:  # the first design, same tensors
+                first_t = _kernel_timings(
+                    torch, _mlstm_bwd_first_design(torch, mk, args),
+                    MLSTM_BWD_KERNELS_CUDA_CORES, 5)
                 row.update({f"first_design_{k_}": v_
                             for k_, v_ in first_t.items()})
-                del outs
             main.append(row)
             del args, q, k, v, dh
             torch.cuda.empty_cache()
     emit("mlstm_chunkwise_bwd", tolerance=ATTN_TOL,
          tolerance_relative_to="max(1, largest |plain gradient|)",
          rel_norm_limit=ATTN_BWD_REL_NORM, shapes=main, edge=edge)
-    return main[0]
+    return tuple(next(r for r in main if r["dtype"] == d)
+                 for d in ("bfloat16", "float32"))
 
 
 # ------------------------------------------------------- the serving path
@@ -1898,14 +1933,15 @@ def _kernel_counts():
 def _zero_kernel_counts():
     for w in _serving_wrappers().values():
         w.launches = 0
-    _serving_wrappers()["flash_attention_bwd"].launches_by_source = {}
+    for name in ("flash_attention_bwd", "mlstm_chunkwise_bwd"):
+        _serving_wrappers()[name].launches_by_source = {}
 
 
-def _bwd_by_source() -> dict:
-    """The attention backward's launching calls by source since the
-    counts were last set to 0."""
-    return dict(_serving_wrappers()["flash_attention_bwd"]
-                .launches_by_source)
+def _bwd_by_source(name: str = "flash_attention_bwd") -> dict:
+    """A backward wrapper's launching calls by source since the counts
+    were last set to 0 (the attention backward's unless ``name`` says
+    ``mlstm_chunkwise_bwd``)."""
+    return dict(_serving_wrappers()[name].launches_by_source)
 
 
 def expected_launches(cfg, decode_steps: int) -> dict:
@@ -1982,17 +2018,16 @@ def expected_bwd_sources(torch, cfg, n: int) -> dict:
     return {bwd_source(cfg.dtype, cfg.head_dim): n}
 
 
-def expected_train_sources(torch, cfg) -> dict:
-    """The source each recurrent backward of a bf16 train step must run
-    (the route tables pick by dtype and head dim): xlstm's mLSTM at its
-    head dim; none for the other families."""
-    if cfg.family != "xlstm":
+def expected_mlstm_bwd_sources(cfg, n: int) -> dict:
+    """The mLSTM backward's launches by source that ``n`` of them at
+    ``cfg`` must give: all on the source the route table picks for its
+    dtype and head dim (bf16: the bf16 tensor-core kernel; float32: the
+    split-TF32 one), none without an mLSTM layer."""
+    if not n:
         return {}
-    from repro_torch.kernels.mlstm_kernel import uses_sm90_bwd
+    from repro_torch.kernels.mlstm_kernel import bwd_source
     from repro_torch.models.xlstm import d_inner
-    hd = d_inner(cfg) // cfg.n_heads
-    return {"mlstm_chunkwise_bwd": "mlstm_kernel_bwd_sm90.cu"
-            if uses_sm90_bwd(torch.bfloat16, hd) else "mlstm_kernel_bwd.cu"}
+    return {bwd_source(cfg.dtype, d_inner(cfg) // cfg.n_heads): n}
 
 
 def _device_kernels(records: dict, launched: dict):
@@ -2553,8 +2588,8 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         want = expected_train_launches(cfg, 1)
-        want_src = expected_train_sources(torch, cfg)
-        wrappers = _serving_wrappers()
+        want_src = expected_mlstm_bwd_sources(cfg,
+                                              want["mlstm_chunkwise_bwd"])
         steps = []
         for step in range(warm + timed):
             data = tr.data.batch(step)
@@ -2577,10 +2612,11 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
             if counts != want:
                 raise AssertionError(f"{phase} step {step}: launches "
                                      f"{counts}, expected {want}")
-            sources = {w: wrappers[w].source for w in want_src}
+            sources = _bwd_by_source("mlstm_chunkwise_bwd")
             if sources != want_src:
-                raise AssertionError(f"{phase} step {step}: sources "
-                                     f"{sources}, expected {want_src}")
+                raise AssertionError(f"{phase} step {step}: mLSTM backward "
+                                     f"by source {sources}, expected "
+                                     f"{want_src}")
             by_source = _bwd_by_source()
             if by_source != expected_bwd_sources(
                     torch, cfg, want["flash_attention_bwd"]):
@@ -2643,7 +2679,7 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
          warmup_steps=warm, init_s=init_s, steps=steps,
          step_s_median=med, tokens_per_s=batch * seq_len / med,
          peak_memory_bytes=peak, expected_launches_per_step=want,
-         kernel_sources=want_src,
+         mlstm_bwd_by_source_per_step=want_src,
          moe_slots=None if drops is None else
          batch * seq_len * cfg.top_k,
          moe_dropped_slots_by_layer=drops,
@@ -2731,12 +2767,17 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
     want = expected_train_launches(cfg, n_steps)
     if counts != want:
         raise AssertionError(f"{phase}: launches {counts}, expected {want}")
-    # every float32 attention backward on the split-TF32 kernel
+    # every float32 attention and mLSTM backward on its split-TF32 kernel
     by_source = _bwd_by_source()
     if by_source != expected_bwd_sources(torch, cfg,
                                          want["flash_attention_bwd"]):
         raise AssertionError(f"{phase}: attention backward by source "
                              f"{by_source}")
+    mlstm_by_source = _bwd_by_source("mlstm_chunkwise_bwd")
+    if mlstm_by_source != expected_mlstm_bwd_sources(
+            cfg, want["mlstm_chunkwise_bwd"]):
+        raise AssertionError(f"{phase}: mLSTM backward by source "
+                             f"{mlstm_by_source}")
     (pc, oc), (ph, oh) = states["card"], states["cpu"]
     worst = {}
     for part, a_tree, c_tree in (("params", pc, ph), ("m", oc["m"], oh["m"]),
@@ -2760,9 +2801,12 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
          frontend_tokens=n_front, steps=rows,
          peak_lr=peak_lr, tolerance=tol, worst_relative_to_scale=worst,
          launches=counts, attention_bwd_by_source=by_source,
+         mlstm_bwd_by_source=mlstm_by_source,
          seconds=seconds, host_bytes_available_before=host_free)
     return {**counts, "flash_attention_bwd_tf32x3": by_source.get(
-        "flash_attention_bwd_tf32x3.cu", 0)}
+        "flash_attention_bwd_tf32x3.cu", 0),
+        "mlstm_chunkwise_bwd_tf32x3": mlstm_by_source.get(
+            "mlstm_kernel_bwd_tf32x3.cu", 0)}
 
 
 def host_bytes_available() -> int:
@@ -2948,15 +2992,15 @@ def main(argv=None) -> int:
                   "decode_attention", "rglru_scan", "rglru_scan_bwd",
                   "mlstm_chunkwise", "mlstm_chunkwise_bwd"):
         paths[kname] = {p: c[kname] for p, c in by_path.items() if c[kname]}
-    # the attention backward by source: the float32 split-TF32 kernel's
-    # launches (the parity phases, each holding every one to that source)
-    # and the bf16 kernel's, the rest
-    tf32 = {p: c["flash_attention_bwd_tf32x3"] for p, c in by_path.items()
-            if c.get("flash_attention_bwd_tf32x3")}
-    paths["flash_attention_bwd"] = {
-        p: n - tf32.get(p, 0)
-        for p, n in paths["flash_attention_bwd"].items() if n > tf32.get(p, 0)}
-    paths["flash_attention_bwd_tf32x3"] = tf32
+    # each backward by source: the float32 split-TF32 kernel's launches
+    # (the parity phases, each holding every one to that source) and the
+    # bf16 kernel's, the rest
+    for kname in ("flash_attention_bwd", "mlstm_chunkwise_bwd"):
+        key = f"{kname}_tf32x3"
+        tf32 = {p: c[key] for p, c in by_path.items() if c.get(key)}
+        paths[kname] = {p: n - tf32.get(p, 0)
+                        for p, n in paths[kname].items() if n > tf32.get(p, 0)}
+        paths[key] = tf32
     kernels = []
     for kname, row, src, tpu in (
             ("minskew", ms, "src/repro_torch/kernels/csrc/minskew.cu",
@@ -2987,10 +3031,15 @@ def main(argv=None) -> int:
              "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
              "gradient of src/repro/kernels/rglru_scan.py:60 (the JAX "
              "package differentiates its jnp version; no Pallas kernel)"),
-            ("mlstm_chunkwise_bwd", mlb,
-             f"src/repro_torch/kernels/csrc/{mlb['kernel']}",
+            ("mlstm_chunkwise_bwd", mlb[0],
+             f"src/repro_torch/kernels/csrc/{mlb[0]['kernel']}",
              "gradient of src/repro/kernels/mlstm_kernel.py:79 (the JAX "
-             "package differentiates its jnp version; no Pallas kernel)")):
+             "package differentiates its jnp version; no Pallas kernel)"),
+            ("mlstm_chunkwise_bwd_tf32x3", mlb[1],
+             f"src/repro_torch/kernels/csrc/{mlb[1]['kernel']}",
+             "gradient of src/repro/kernels/mlstm_kernel.py:79 in float32 "
+             "(the JAX package differentiates its jnp version; no Pallas "
+             "kernel)")):
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": tpu,
             "launches": sum(paths[kname].values()),

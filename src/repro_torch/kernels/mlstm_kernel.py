@@ -35,8 +35,8 @@ which carry the state through unchanged (large finite values, so no
 
 The gradient, bound through :class:`MlstmChunkwise`, a
 ``torch.autograd.Function`` around either forward route that saves only
-its inputs, is :func:`mlstm_chunkwise_bwd`, two kernels chosen by dtype
-and head dim only (:func:`uses_sm90_bwd`):
+its inputs, is :func:`mlstm_chunkwise_bwd`, three sources chosen by dtype
+and head dim only (:func:`bwd_source`):
 
 - bf16 with hd a multiple of 8 up to ``SM90_BWD_MAX_HD`` = 1,152 runs
   ``csrc/mlstm_kernel_bwd_sm90.cu``: every product on the tensor cores
@@ -45,9 +45,16 @@ and head dim only (:func:`uses_sm90_bwd`):
   walk, each chunk's dC' stored in bf16 for the products that follow,
   and both carries' gated factors split into two bf16 parts (see its
   source note, and tests/test_torch_mlstm_bwd_split.py);
-- float32 at any hd, and every other bf16 head dim, run the first
-  design, ``csrc/mlstm_kernel_bwd.cu``: float32 sums on the CUDA cores,
-  the chunk-start states rebuilt into the workspace.
+- float32 with hd a multiple of 8 up to ``TF32X3_BWD_MAX_HD`` = 1,024
+  runs ``csrc/mlstm_kernel_bwd_tf32x3.cu``: the same six-kernel structure
+  with every product on the tensor cores as three TF32 ``mma.sync`` of
+  operands split into hi and lo parts, C and each chunk's dC' kept in
+  float32, each chunk's carry update summed from zero and joined by one
+  rounded ``fmaf`` (see its source note, and
+  tests/test_torch_mlstm_bwd_tf32x3.py);
+- every other head dim, in either dtype, runs the first design,
+  ``csrc/mlstm_kernel_bwd.cu``: float32 sums on the CUDA cores, the
+  chunk-start states rebuilt into the workspace.
 
 Each allocates its workspace for the call.  The JAX package
 differentiates its jnp chunkwise form; it has no backward Pallas kernel.
@@ -62,7 +69,8 @@ on a CUDA tensor they launch a kernel or raise.  Both paths check dtypes
 and shapes first.  ``mlstm_chunkwise.launches`` and
 ``mlstm_chunkwise_bwd.launches`` count launches,
 ``mlstm_chunkwise.source`` and ``mlstm_chunkwise_bwd.source`` name the
-source of the last one.
+source of the last one, ``mlstm_chunkwise_bwd.launches_by_source`` counts
+the backward's launches by source.
 """
 from __future__ import annotations
 
@@ -86,6 +94,11 @@ MAX_HD = 8192
 SM90_MAX_HD = 2816            # mlstm_sm90_max_hd() in csrc/mlstm_kernel_sm90.cu
 #: mlstm_bwd_sm90_max_hd() in csrc/mlstm_kernel_bwd_sm90.cu
 SM90_BWD_MAX_HD = 1152
+#: mlstm_bwd_tf32x3_max_hd() in csrc/mlstm_kernel_bwd_tf32x3.cu
+TF32X3_BWD_MAX_HD = 1024
+BWD_SM90 = "mlstm_kernel_bwd_sm90.cu"        # bf16
+BWD_TF32X3 = "mlstm_kernel_bwd_tf32x3.cu"    # float32
+BWD_CUDA_CORES = "mlstm_kernel_bwd.cu"       # every other head dim
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,29 +158,31 @@ def _lib_bwd():
     return fn, ws
 
 
+#: each tensor-core backward source: the infix of its C functions, its
+#: head-dim limit (the source's ``mlstm_bwd_<infix>_max_hd()``)
+_TENSOR_CORE_BWD = {BWD_SM90: ("sm90", SM90_BWD_MAX_HD),
+                    BWD_TF32X3: ("tf32x3", TF32X3_BWD_MAX_HD)}
+
+
 @functools.lru_cache(maxsize=None)
-def _lib_bwd_sm90():
-    """The bf16 tensor-core backward's launcher and workspace-size
-    function, set up once; checks that the source's chunk is ``CHUNK``
-    and its head-dim limit ``SM90_BWD_MAX_HD``."""
-    lib = _build.load("mlstm_kernel_bwd_sm90")
-    for name in ("mlstm_bwd_sm90_chunk_len", "mlstm_bwd_sm90_max_hd"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = _I
-    if (lib.mlstm_bwd_sm90_chunk_len(), lib.mlstm_bwd_sm90_max_hd()) != (
-            CHUNK, SM90_BWD_MAX_HD):
-        raise RuntimeError(
-            f"mlstm_kernel_bwd_sm90.cu's chunk and head-dim limit are "
-            f"{lib.mlstm_bwd_sm90_chunk_len()}, "
-            f"{lib.mlstm_bwd_sm90_max_hd()}; the wrapper expects {CHUNK}, "
-            f"{SM90_BWD_MAX_HD}")
-    ws = lib.mlstm_bwd_sm90_workspace_bytes
-    ws.argtypes = [_I, _I, _I]
-    ws.restype = ctypes.c_longlong
-    fn = lib.mlstm_bwd_sm90_launch
-    fn.argtypes = [_P] * 18 + [_I, _I, _I, ctypes.c_double, _P]
-    fn.restype = _I
-    return fn, ws
+def _lib_bwd_tensor_cores(source: str):
+    """A tensor-core backward's launcher and workspace-size function, set
+    up once; checks that the source's chunk is ``CHUNK`` and its head-dim
+    limit the one the route table expects."""
+    infix, max_hd = _TENSOR_CORE_BWD[source]
+    lib = _build.load(source[:-len(".cu")])
+
+    def fn(name, argtypes, restype):
+        f = getattr(lib, f"mlstm_bwd_{infix}_{name}")
+        f.argtypes, f.restype = argtypes, restype
+        return f
+    chunk_len, limit = (fn(name, [], _I) for name in ("chunk_len", "max_hd"))
+    if (chunk_len(), limit()) != (CHUNK, max_hd):
+        raise RuntimeError(f"{source}'s chunk and head-dim limit are "
+                           f"{chunk_len()}, {limit()}; the wrapper expects "
+                           f"{CHUNK}, {max_hd}")
+    return (fn("launch", [_P] * 18 + [_I, _I, _I, ctypes.c_double, _P], _I),
+            fn("workspace_bytes", [_I, _I, _I], ctypes.c_longlong))
 
 
 def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
@@ -176,12 +191,17 @@ def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
     return dtype == torch.bfloat16 and hd % 8 == 0 and hd <= SM90_MAX_HD
 
 
-def uses_sm90_bwd(dtype: torch.dtype, hd: int) -> bool:
-    """Whether a CUDA call of :func:`mlstm_chunkwise_bwd` at this dtype
-    and head dim runs ``csrc/mlstm_kernel_bwd_sm90.cu`` (else
-    ``csrc/mlstm_kernel_bwd.cu``)."""
-    return (dtype == torch.bfloat16 and hd % 8 == 0
-            and hd <= SM90_BWD_MAX_HD)
+def bwd_source(dtype: torch.dtype, hd: int) -> str:
+    """The source a CUDA call of :func:`mlstm_chunkwise_bwd` at this dtype
+    and head dim runs: ``mlstm_kernel_bwd_sm90.cu`` for bf16 and
+    ``mlstm_kernel_bwd_tf32x3.cu`` for float32, each at hd a multiple of 8
+    up to its limit; ``mlstm_kernel_bwd.cu`` for every other head dim."""
+    if hd % 8 == 0:
+        if dtype == torch.bfloat16 and hd <= SM90_BWD_MAX_HD:
+            return BWD_SM90
+        if dtype == torch.float32 and hd <= TF32X3_BWD_MAX_HD:
+            return BWD_TF32X3
+    return BWD_CUDA_CORES
 
 
 def _check(q, k, v, i_raw, f_raw, c0, n0):
@@ -341,7 +361,7 @@ def mlstm_chunkwise_bwd(q, k, v, i_raw, f_raw, c0, n0, dh, dc=None,
     dtype, (di_raw, df_raw) float32, (dc0, dn0) float32).
 
     On CPU tensors: :func:`repro_torch.kernels.ref.mlstm_chunkwise_bwd_plain`.
-    On CUDA tensors: the kernel :func:`uses_sm90_bwd` picks, on the
+    On CUDA tensors: the source :func:`bwd_source` picks, on the
     tail-padded inputs (dh padded with zeros), the padded rows dropped;
     or raise."""
     _check(q, k, v, i_raw, f_raw, c0, n0)
@@ -383,17 +403,18 @@ def mlstm_chunkwise_bwd(q, k, v, i_raw, f_raw, c0, n0, dh, dc=None,
     dq, dk, dv = (torch.empty_like(qp) for _ in range(3))
     di, df = torch.empty_like(ip), torch.empty_like(fp)
     dc, dn = (None if t is None else t.contiguous() for t in (dc, dn))
-    if uses_sm90_bwd(q.dtype, hd):
-        source, launch = "mlstm_kernel_bwd_sm90.cu", _bwd_sm90
-    else:
-        source, launch = "mlstm_kernel_bwd.cu", _bwd_cuda_cores
-    err = launch(qp, kp, vp, dhp, ip, fp, c0, n0, dc, dn, dq, dk, dv, di, df,
-                 dc0, dn0)
+    source = bwd_source(q.dtype, hd)
+    ins = (qp, kp, vp, dhp, ip, fp, c0, n0, dc, dn, dq, dk, dv, di, df, dc0,
+           dn0)
+    err = (_bwd_cuda_cores(*ins) if source == BWD_CUDA_CORES
+           else _bwd_tensor_cores(source, *ins))
     if err != 0:
         raise RuntimeError(f"mlstm_chunkwise_bwd kernel launch failed "
                            f"({source}): CUDA error {err}")
     mlstm_chunkwise_bwd.launches += 1
     mlstm_chunkwise_bwd.source = source
+    by_source = mlstm_chunkwise_bwd.launches_by_source
+    by_source[source] = by_source.get(source, 0) + 1
     return ((dq[:, :s], dk[:, :s], dv[:, :s]), (di[:, :s], df[:, :s]),
             (dc0, dn0))
 
@@ -419,14 +440,15 @@ def _bwd_cuda_cores(q, k, v, dh, i_raw, f_raw, c0, n0, dc, dn, dq, dk, dv,
                   int(q.dtype == torch.bfloat16), stream)
 
 
-def _bwd_sm90(q, k, v, dh, i_raw, f_raw, c0, n0, dc, dn, dq, dk, dv, di,
-              df, dc0, dn0) -> int:
-    """``csrc/mlstm_kernel_bwd_sm90.cu`` on tail-padded contiguous bf16
-    inputs, into the given outputs; returns its error code.  Its
-    workspace (bytes, 16-byte aligned parts) is allocated here for the
+def _bwd_tensor_cores(source, q, k, v, dh, i_raw, f_raw, c0, n0, dc, dn, dq,
+                      dk, dv, di, df, dc0, dn0) -> int:
+    """A tensor-core source (``csrc/mlstm_kernel_bwd_sm90.cu``, bf16, or
+    ``csrc/mlstm_kernel_bwd_tf32x3.cu``, float32) on tail-padded
+    contiguous inputs, into the given outputs; returns its error code.
+    Its workspace (bytes, in aligned parts) is allocated here for the
     call."""
     bh, sp, hd = q.shape
-    fn, ws_bytes = _lib_bwd_sm90()
+    fn, ws_bytes = _lib_bwd_tensor_cores(source)
     ws = torch.empty(ws_bytes(bh, sp, hd), dtype=torch.uint8,
                      device=q.device)
     with torch.cuda.device(q.device):
@@ -438,3 +460,4 @@ def _bwd_sm90(q, k, v, dh, i_raw, f_raw, c0, n0, dc, dn, dq, dk, dv, di,
 
 mlstm_chunkwise_bwd.launches = 0
 mlstm_chunkwise_bwd.source = None
+mlstm_chunkwise_bwd.launches_by_source = {}

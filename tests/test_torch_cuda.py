@@ -175,7 +175,7 @@ def _mlstm_bwd_inputs(dev, dtype, bh, s, hd, carry, final, seed=3):
 
 #: (BH, S, hd, initial carry, final-state gradients): S off the chunk of
 #: 64, hd off the tile of 64, the two kinds of carry each alone and
-#: together, and xlstm's head dim; in bf16 every shape runs the
+#: together, and xlstm's head dim; in either dtype every shape runs a
 #: tensor-core backward but hd 100 (not a multiple of 8: the first
 #: design), and hd 96 runs it with a column block half past hd
 MLSTM_BWD_SHAPES = [(2, 200, 64, True, True), (3, 128, 32, False, False),
@@ -187,32 +187,33 @@ MLSTM_BWD_SHAPES = [(2, 200, 64, True, True), (3, 128, 32, False, False),
 @pytest.mark.parametrize("bh,s,hd,carry,final", MLSTM_BWD_SHAPES)
 def test_mlstm_bwd_kernel_vs_plain(dev, dtype, bh, s, hd, carry, final):
     """The backward kernel its dtype and head dim pick
-    (``csrc/mlstm_kernel_bwd_sm90.cu`` for bf16 at hd a multiple of 8 up
-    to the limit, else ``csrc/mlstm_kernel_bwd.cu``) against
+    (``mlstm_kernel.bwd_source``: ``csrc/mlstm_kernel_bwd_sm90.cu`` for
+    bf16 and ``csrc/mlstm_kernel_bwd_tf32x3.cu`` for float32 at hd a
+    multiple of 8 up to their limits, else ``csrc/mlstm_kernel_bwd.cu``)
+    against
     ``ref.mlstm_chunkwise_bwd_plain`` in both dtypes (each gradient within
     the dtype's tolerance of its largest |plain value|, and by its
     relative norm); a second call gives the same bits."""
-    from repro_torch.kernels.mlstm_kernel import (mlstm_chunkwise_bwd,
-                                                  uses_sm90_bwd)
+    from repro_torch.kernels.mlstm_kernel import (BWD_SM90, bwd_source,
+                                                  mlstm_chunkwise_bwd)
     from repro_torch.kernels.ref import mlstm_chunkwise_bwd_plain
     args = _mlstm_bwd_inputs(dev, dtype, bh, s, hd, carry, final)
     before = mlstm_chunkwise_bwd.launches
     got = mlstm_chunkwise_bwd(*args)
     assert mlstm_chunkwise_bwd.launches == before + 1
-    assert mlstm_chunkwise_bwd.source == (
-        "mlstm_kernel_bwd_sm90.cu" if uses_sm90_bwd(dtype, hd)
-        else "mlstm_kernel_bwd.cu")
+    source = bwd_source(dtype, hd)
+    assert mlstm_chunkwise_bwd.source == source
     want = mlstm_chunkwise_bwd_plain(*args)
     parts = ("dq", "dk", "dv", "di_raw", "df_raw", "dc0", "dn0")
     for part, g, w in zip(parts, [x for gg in got for x in gg],
                           [x for ww in want for x in ww]):
         err = float((g.float() - w.float()).abs().max())
         scale = max(1.0, float(w.float().abs().max()))
-        # the first design sums in float32 from the given operands, so its
-        # float32 outputs meet float32's tolerance in either dtype; the
-        # tensor-core design rounds operands to bf16 (S / m, dS~, C, dC'),
-        # so each of its gradients is held to bf16's
-        tol = TOL[dtype] if uses_sm90_bwd(dtype, hd) else TOL[g.dtype]
+        # the first design and the split-TF32 one keep float32 accuracy,
+        # so their float32 outputs meet float32's tolerance in either
+        # dtype; the bf16 tensor-core design rounds operands to bf16 (S /
+        # m, dS~, C, dC'), so each of its gradients is held to bf16's
+        tol = TOL[dtype] if source == BWD_SM90 else TOL[g.dtype]
         assert err <= tol * scale, (part, err, scale)
         diff = float(torch.linalg.vector_norm(g.float() - w.float()))
         norm = float(torch.linalg.vector_norm(w.float()))

@@ -29,10 +29,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.mlstm_kernel import (CHUNK, SM90_BWD_MAX_HD,
-                                              SM90_MAX_HD, mlstm_flat_plain,
-                                              pad_tail, uses_sm90,
-                                              uses_sm90_bwd)
+from repro_torch.kernels.mlstm_kernel import (BWD_CUDA_CORES, BWD_SM90,
+                                              BWD_TF32X3, CHUNK,
+                                              SM90_BWD_MAX_HD, SM90_MAX_HD,
+                                              bwd_source, mlstm_flat_plain,
+                                              pad_tail, uses_sm90)
 
 TOL_H, TOL_CARRY = 2e-2, 1e-4
 
@@ -147,8 +148,14 @@ def test_kernel_chosen_by_dtype_and_head_dim(dtype, hd, want):
     (torch.bfloat16, 100, False), (torch.bfloat16, SM90_MAX_HD, False),
     (torch.float32, 1024, False), (torch.float32, 64, False)])
 def test_backward_kernel_chosen_by_dtype_and_head_dim(dtype, hd, want):
-    """bf16 with hd a multiple of 8 up to the limit runs the tensor-core
-    backward; float32, and every other bf16 head dim, the first design.
-    The backward's limit lies below the forward's."""
-    assert uses_sm90_bwd(dtype, hd) is want
+    """bf16 with hd a multiple of 8 up to its limit runs the bf16
+    tensor-core backward (``want``); float32 at hd a multiple of 8 up to
+    its limit, the split-TF32 one; every other bf16 head dim, the first
+    design.  The bf16 backward's limit lies below the forward's."""
+    source = bwd_source(dtype, hd)
+    assert (source == BWD_SM90) is want
+    if dtype == torch.float32:
+        assert source == BWD_TF32X3
+    elif not want:
+        assert source == BWD_CUDA_CORES
     assert SM90_BWD_MAX_HD < SM90_MAX_HD and uses_sm90(dtype, hd) >= want
