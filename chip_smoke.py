@@ -10,7 +10,7 @@ and catches nothing: any mismatch raises and the exit code is non-zero.
 One JSON line per phase:
 
 1. device — the card, ``nvidia-smi``'s name and power limit, versions;
-2. build — every CUDA source of ``_build.SOURCES`` (sixteen: the
+2. build — every CUDA source of ``_build.SOURCES`` (seventeen: the
    forward kernels, the attention and recurrences' backwards, first
    designs included, and the empty ``launch_floor`` kernel) compiled from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, in parallel);
@@ -108,12 +108,18 @@ One JSON line per phase:
    recurrentgemma's train shape (B=4, S=1,024, W=4,096) without and with
    h0 (two calls bit-equal), and S = 1, S = 515 with W = 4,099, S below
    the chunk; the plain loop timed on few calls;
-14. mlstm_chunkwise — kernel vs plain version at xlstm's prefill shape
-   (BH=16, S=1,024, hd=1,024), bfloat16 (the tensor-core kernel) and
-   float32 (the first design), and edge shapes (S not a multiple of the
-   chunk, an initial carry, small hd, in bfloat16 a head dim above the
-   tensor-core kernel's limit), with the final (C, n) and the source
-   that ran;
+14. mlstm_chunkwise — the forward kernels (``csrc/mlstm_kernel_sm90.cu``
+   for bfloat16 on the tensor cores, ``csrc/mlstm_kernel_tf32x3.cu`` for
+   float32 on the tensor cores as split TF32 products,
+   ``csrc/mlstm_kernel.cu`` for the head dims neither takes) vs their
+   plain version at xlstm's prefill shape (BH=16, S=1,024, hd=1,024),
+   bfloat16 and float32, and in float32 at train_parity_xlstm's (BH=8,
+   S=200, hd=1,024), each timed in turns with the first design on the
+   same tensors (a float32 row's bound at the TF32 peak times three, the
+   CUDA-core bound beside it); and edge shapes (S not a multiple of the
+   chunk, an initial carry, small hd, hd 100 off both tensor-core routes,
+   in bfloat16 a head dim above its kernel's limit), with the final (C, n),
+   the source that ran, every case twice and bit-equal;
 14b. mlstm_chunkwise_bwd — the backward kernels
    (``csrc/mlstm_kernel_bwd_sm90.cu`` for bfloat16 on the tensor cores,
    ``csrc/mlstm_kernel_bwd_tf32x3.cu`` for float32 on the tensor cores as
@@ -143,7 +149,8 @@ One JSON line per phase:
 18. serve_parity_rglru, serve_parity_xlstm — card against CPU at full
    width, float32, cut depth: recurrentgemma (rec, rec, attn) with
    prompts of 2,080 tokens, which wrap the window; xlstm one mLSTM and
-   one sLSTM block with prompts of 200 tokens, which the kernel pads;
+   one sLSTM block with prompts of 200 tokens, which the kernel pads, its
+   mLSTM forward's launches counted, every one on the split-TF32 kernel;
 19. live_serve — ``record_live_serve`` on the card (smoke config), its
    trace replayed bit-identically under the barrier and async engines;
 19b. serve_moe, serve_vlm, serve_encdec — the same serving phase on
@@ -190,7 +197,8 @@ One JSON line per phase:
    backward once an mLSTM layer); then two train steps card against CPU
    at full width in float32 (recurrentgemma 3 layers, rec, rec, attn, at
    S = 128; xlstm one mLSTM and one sLSTM block at S = 200, which the
-   kernels pad) within 1e-4;
+   kernels pad, its mLSTM forward and backward launches each on its
+   split-TF32 kernel) within 1e-4;
 22. live_recovery, live_colocated — ``record_live_recovery`` and
    ``record_live_colocated`` on the card (smoke config): the real trainer
    loses a host, restores a committed checkpoint and re-meshes (ordered
@@ -199,7 +207,8 @@ One JSON line per phase:
    async engines;
 23. kernels — one object per kernel: launches on its paths (the main
    path and the sweep for ``minskew`` and ``hub_route``, the train paths
-   for the backward kernels), max error against the plain version,
+   for the backward kernels; the float32 split-TF32 kernels apart, from
+   the parity phases), max error against the plain version,
    times, the card's bound, the library call's time and, for the
    engine's two kernels, the launch floor.
 
@@ -213,7 +222,8 @@ back-to-back calls over 20; ``*_device_ms`` are the kernels' own device
 time per call from ``torch.profiler`` (null where it saw none);
 ``bound_ms`` is the larger of the bytes the function must move over the
 card's 3.35 TB/s and its operations over the card's peak for their type
-(989 TFLOP/s bfloat16 on the tensor cores, 67 TFLOP/s float32).  All on
+(989 TFLOP/s bfloat16 on the tensor cores, 67 TFLOP/s float32 on the CUDA
+cores, 494.7 TFLOP/s TF32 for each of a split's three products).  All on
 the card named in phase 1.
 """
 from __future__ import annotations
@@ -1117,17 +1127,21 @@ RGLRU_SERVE_SHAPE = (4, 3072, 4096)
 #: (BH, S, hd, with an initial carry, timed, dtypes): xlstm's prefill
 #: shape (B=4 x H=4 heads of hd 1,024), tests/test_kernels.py's mlstm
 #: shapes, S not a multiple of the kernel's chunk and hd 8, in both dtypes;
-#: in bfloat16 also the prefill shape with an initial carry, and a head dim
-#: above the tensor-core kernel's limit (SM90_MAX_HD), where the first
-#: design runs
+#: in float32 also train_parity_xlstm's and serve_parity_xlstm's shape
+#: (B=2 x H=4 at S = 200, padded to 256; timed); hd 100, off both
+#: tensor-core routes (not a multiple of 8), where the first design runs
+#: in either dtype; in bfloat16 also the prefill shape with an initial
+#: carry, and a head dim above the bf16 kernel's limit (SM90_MAX_HD)
 BOTH = ("bfloat16", "float32")
 MLSTM_CASES = [(16, 1024, 1024, False, True, BOTH),
+               (8, 200, 1024, False, True, ("float32",)),
                (2, 128, 32, False, False, BOTH),
                (4, 256, 64, False, False, BOTH),
                (1, 64, 128, False, False, BOTH),
                (2, 200, 64, True, False, BOTH),
                (3, 130, 96, True, False, BOTH),
                (2, 64, 8, True, False, BOTH),
+               (1, 70, 100, True, False, BOTH),
                (16, 1024, 1024, True, False, ("bfloat16",)),
                (1, 128, 2880, True, False, ("bfloat16",))]
 
@@ -1209,7 +1223,8 @@ TRAIN_OP_CLASSES = (("attention_bwd", ("flash_bwd",)),
                     ("recurrence_bwd", ("rglru_bwd", "mlstm_bwd")),
                     ("recurrence_fwd", ("rglru_chained", "mlstm_scores",
                                         "mlstm_den", "mlstm_carry",
-                                        "scores_kernel", "carry_kernel")),
+                                        "mlstm_tf32x3", "scores_kernel",
+                                        "carry_kernel")),
                     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
                     ("elementwise", ("elementwise", "copy", "fill")),
                     ("reduction", ("reduce", "softmax", "logsumexp",
@@ -1482,10 +1497,17 @@ MLSTM_BWD_KERNELS_BY_SOURCE = {
     "mlstm_kernel_bwd.cu": MLSTM_BWD_KERNELS_CUDA_CORES,
     "mlstm_kernel_bwd_sm90.cu": MLSTM_BWD_KERNELS_SM90,
     "mlstm_kernel_bwd_tf32x3.cu": MLSTM_BWD_KERNELS_TF32X3}
-#: the device kernels of both routes: mlstm_kernel.cu's and
-#: mlstm_kernel_sm90.cu's
-MLSTM_KERNELS = ("scores_kernel", "carry_kernel", "mlstm_scores_sm90",
-                 "mlstm_den_sm90", "mlstm_carry_sm90")
+#: the device kernels of the three forward routes, by source: the first
+#: design's, the bf16 tensor-core source's and the float32 one's (no name
+#: is a part of another's, or of a backward kernel's)
+MLSTM_KERNELS_BY_SOURCE = {
+    "mlstm_kernel.cu": ("scores_kernel", "carry_kernel"),
+    "mlstm_kernel_sm90.cu": ("mlstm_scores_sm90", "mlstm_den_sm90",
+                             "mlstm_carry_sm90"),
+    "mlstm_kernel_tf32x3.cu": ("mlstm_tf32x3_scores", "mlstm_tf32x3_den",
+                               "mlstm_tf32x3_carry")}
+MLSTM_KERNELS = tuple(n for names in MLSTM_KERNELS_BY_SOURCE.values()
+                      for n in names)
 
 
 def phase_rglru_scan(torch, np, dev):
@@ -1550,16 +1572,58 @@ def mlstm_work(bh: int, s: int, hd: int, elt: int, carry_in: bool):
     return n_bytes, bh * s * (4 * hd * hd + 4 * CHUNK * hd)
 
 
+def _mlstm_first_design(torch, mk, args):
+    """A call of the first design (``csrc/mlstm_kernel.cu``) on the same
+    inputs, tail-padded as the wrapper pads them, into outputs made once;
+    it returns h, (C, n) as the wrapper does."""
+    q, k, v, ig, fg, c0, n0 = args
+    ins = mk.pad_tail(q, k, v, ig, fg)
+    bh, s, hd = q.shape
+    c, n, h = (torch.empty(bh, hd, hd, device=q.device),
+               torch.empty(bh, hd, device=q.device), torch.empty_like(ins[0]))
+
+    def first():
+        err = mk._fwd_cuda_cores(*ins, c0, n0, c, n, h)
+        if err:
+            raise RuntimeError(f"mlstm_kernel.cu: CUDA error {err}")
+        return h[:, :s], (c, n)
+    return first
+
+
+def _hold_mlstm_fwd(torch, got, want, dtype: str, where) -> tuple:
+    """Holds h (in the inputs' dtype) and the final C and n (float32) of
+    ``mlstm_chunkwise`` each to its plain value: max abs error within
+    ``ATTN_TOL`` x max(1, its largest |plain value|), and ||got - want|| /
+    ||want|| within ``ATTN_BWD_REL_NORM``.  Returns ({name: max abs
+    error}, {name: relative norm})."""
+    errs, rels = {}, {}
+    for part, a, w, pdt in zip(("h", "C", "n"), got, want,
+                               (dtype, "float32", "float32")):
+        err, scale = _err(a, w), float(w.float().abs().max())
+        name = f"mlstm_chunkwise {part}"
+        _hold(name, err, pdt, (*where, part), scale)
+        rels[part] = _hold_rel_norm(torch, name, a, w, pdt, (*where, part))
+        errs[part] = err
+    return errs, rels
+
+
 def phase_mlstm_chunkwise(torch, np, dev):
     """Kernel vs plain version (``mlstm_flat_plain``: the same tail
     padding, the chunkwise form at the kernel's chunk) on the card, h
-    and the final C and n; each case names the source that ran.  The
-    bound is at the peak of the dtype's route (bfloat16 on the tensor
-    cores, float32 on the CUDA cores).  No single PyTorch call computes
-    a chunkwise mLSTM, so there is no library time."""
-    from repro_torch.kernels.mlstm_kernel import mlstm_chunkwise
-    from repro_torch.kernels.mlstm_kernel import mlstm_flat_plain
-    from repro_torch.kernels.mlstm_kernel import uses_sm90
+    and the final C and n, each case on the source
+    ``mlstm_kernel.fwd_source`` picks for its dtype and hd
+    (``csrc/mlstm_kernel_sm90.cu``: bf16 on the tensor cores;
+    ``csrc/mlstm_kernel_tf32x3.cu``: float32 on the tensor cores as split
+    TF32 products; ``csrc/mlstm_kernel.cu``: float32 FMAs on the CUDA
+    cores, for the head dims neither takes), each of h, C and n by
+    ``_hold_mlstm_fwd``; every case twice and bit-equal.  The bound is at the peak of the route that runs (bf16 on
+    the tensor cores; float32 as three TF32 products each on the tensor
+    cores, the CUDA-core bound beside it); a tensor-core row is timed in
+    turns with the first design on the same tensors (kernel, first
+    design, kernel again).  No single PyTorch call computes a chunkwise
+    mLSTM, so there is no library time.  Returns the first timed row of
+    each dtype (bf16, float32)."""
+    from repro_torch.kernels import mlstm_kernel as mk
     g = torch.Generator(device=dev).manual_seed(7)
     main, edge = [], []
     for dt in (torch.bfloat16, torch.float32):
@@ -1575,43 +1639,64 @@ def phase_mlstm_chunkwise(torch, np, dev):
             if carry_in:
                 c0 = torch.randn(bh, hd, hd, generator=g, device=dev) * 0.1
                 n0 = torch.randn(bh, hd, generator=g, device=dev) * 0.1
-            h, (c, n) = mlstm_chunkwise(q, k, v, ig, fg, c0, n0)
-            hw, (cw, nw) = mlstm_flat_plain(q, k, v, ig, fg, c0, n0)
+            args = (q, k, v, ig, fg, c0, n0)
+            before = mk.mlstm_chunkwise.launches
+            h, (c, n) = mk.mlstm_chunkwise(*args)
+            again = mk.mlstm_chunkwise(*args)
+            hw, (cw, nw) = mk.mlstm_flat_plain(*args)
             torch.cuda.synchronize()
-            want = ("mlstm_kernel_sm90.cu" if uses_sm90(dt, hd)
-                    else "mlstm_kernel.cu")
-            if mlstm_chunkwise.source != want:
-                raise AssertionError(f"mlstm_chunkwise at {(bh, s, hd)} "
-                                     f"{dname} ran {mlstm_chunkwise.source}"
-                                     f", expected {want}")
-            errs = {}
-            for part, got, want, pdt in (("h", h, hw, dname),
-                                         ("C", c, cw, "float32"),
-                                         ("n", n, nw, "float32")):
-                err, scale = _err(got, want), float(want.abs().max())
-                _hold("mlstm_chunkwise", err, pdt,
-                      (bh, s, hd, carry_in, part), scale)
-                errs[part] = err
+            source = mk.fwd_source(dt, hd)
+            if (mk.mlstm_chunkwise.source != source
+                    or mk.mlstm_chunkwise.launches != before + 2):
+                raise AssertionError(
+                    f"mlstm_chunkwise at {(bh, s, hd)} {dname} ran "
+                    f"{mk.mlstm_chunkwise.source} "
+                    f"({mk.mlstm_chunkwise.launches - before} launches for "
+                    f"2 calls), expected {source}")
+            if not (torch.equal(h, again[0]) and torch.equal(c, again[1][0])
+                    and torch.equal(n, again[1][1])):
+                raise AssertionError(f"mlstm_chunkwise: two calls at "
+                                     f"{(bh, s, hd)} ({dname}) differ")
+            errs, rels = _hold_mlstm_fwd(torch, (h, c, n), (hw, cw, nw),
+                                         dname, (bh, s, hd, carry_in))
             case = {"dtype": dname, "BH": bh, "S": s, "hd": hd,
-                    "carry_in": carry_in,
-                    "kernel": mlstm_chunkwise.source,
+                    "carry_in": carry_in, "kernel": source,
                     "max_abs_err": errs["h"],
-                    "max_abs_err_C": errs["C"], "max_abs_err_n": errs["n"]}
+                    "max_abs_err_C": errs["C"], "max_abs_err_n": errs["n"],
+                    "rel_norm_err": rels, "bit_equal": True}
+            del h, c, n, hw, cw, nw, again
             if not timed:
                 edge.append(case)
                 continue
-            del h, c, n, hw, cw, nw
             n_bytes, flops = mlstm_work(bh, s, hd, q.element_size(),
                                         carry_in)
-            bound, by = attn_bound_ms(n_bytes, flops, dname)
-            main.append({**case, **_timings(
-                torch, lambda: mlstm_chunkwise(q, k, v, ig, fg, c0, n0),
-                lambda: mlstm_flat_plain(q, k, v, ig, fg, c0, n0),
-                MLSTM_KERNELS, 10),
+            # float32 on the tensor cores: three TF32 products for each
+            bound, by = (attn_bound_ms(n_bytes, 3 * flops, "tf32")
+                         if source == mk.FWD_TF32X3 else
+                         attn_bound_ms(n_bytes, flops, dname))
+            kern = lambda: mk.mlstm_chunkwise(*args)
+            names = MLSTM_KERNELS_BY_SOURCE[source]
+            row = {**case, **_timings(
+                torch, kern, lambda: mk.mlstm_flat_plain(*args), names, 10),
                 "bound_ms": bound, "bound_by": by, "flops": flops,
-                "bytes": n_bytes, "library_ms": None})
-    emit("mlstm_chunkwise", tolerance=ATTN_TOL, shapes=main, edge=edge)
-    return main[0]
+                "bytes": n_bytes, "library_ms": None,
+                "fp32_cuda_core_bound_ms": flops / PEAK_FLOPS["float32"]
+                * 1e3}
+            if source != mk.FWD_CUDA_CORES:  # the first design, same tensors
+                first_t = _kernel_timings(
+                    torch, _mlstm_first_design(torch, mk, args),
+                    MLSTM_KERNELS_BY_SOURCE[mk.FWD_CUDA_CORES], 10)
+                row.update({f"first_design_{k_}": v_
+                            for k_, v_ in first_t.items()})
+                row["kernel_again_device_ms"] = device_ms(torch, kern,
+                                                          names)[0]
+            main.append(row)
+            del args, q, k, v
+            torch.cuda.empty_cache()
+    emit("mlstm_chunkwise", tolerance=ATTN_TOL,
+         rel_norm_limit=ATTN_BWD_REL_NORM, shapes=main, edge=edge)
+    return tuple(next(r for r in main if r["dtype"] == d)
+                 for d in ("bfloat16", "float32"))
 
 
 #: (B, S, W, with h0, timed) for the rglru backward: recurrentgemma's train
@@ -1930,17 +2015,21 @@ def _kernel_counts():
     return {k: w.launches for k, w in _serving_wrappers().items()}
 
 
+#: the wrappers that count their launches by source
+BY_SOURCE = ("flash_attention_bwd", "mlstm_chunkwise", "mlstm_chunkwise_bwd")
+
+
 def _zero_kernel_counts():
     for w in _serving_wrappers().values():
         w.launches = 0
-    for name in ("flash_attention_bwd", "mlstm_chunkwise_bwd"):
+    for name in BY_SOURCE:
         _serving_wrappers()[name].launches_by_source = {}
 
 
-def _bwd_by_source(name: str = "flash_attention_bwd") -> dict:
-    """A backward wrapper's launching calls by source since the counts
-    were last set to 0 (the attention backward's unless ``name`` says
-    ``mlstm_chunkwise_bwd``)."""
+def _by_source(name: str = "flash_attention_bwd") -> dict:
+    """A wrapper's launching calls by source since the counts were last
+    set to 0 (the attention backward's unless ``name`` names another of
+    ``BY_SOURCE``)."""
     return dict(_serving_wrappers()[name].launches_by_source)
 
 
@@ -2018,16 +2107,17 @@ def expected_bwd_sources(torch, cfg, n: int) -> dict:
     return {bwd_source(cfg.dtype, cfg.head_dim): n}
 
 
-def expected_mlstm_bwd_sources(cfg, n: int) -> dict:
-    """The mLSTM backward's launches by source that ``n`` of them at
-    ``cfg`` must give: all on the source the route table picks for its
-    dtype and head dim (bf16: the bf16 tensor-core kernel; float32: the
-    split-TF32 one), none without an mLSTM layer."""
+def expected_mlstm_sources(cfg, n: int, bwd: bool = True) -> dict:
+    """The mLSTM backward's (``bwd``) or forward's launches by source that
+    ``n`` of them at ``cfg`` must give: all on the source the route table
+    picks for its dtype and head dim (bf16: the bf16 tensor-core kernel;
+    float32: the split-TF32 one), none without an mLSTM layer."""
     if not n:
         return {}
-    from repro_torch.kernels.mlstm_kernel import bwd_source
+    from repro_torch.kernels.mlstm_kernel import bwd_source, fwd_source
     from repro_torch.models.xlstm import d_inner
-    return {bwd_source(cfg.dtype, d_inner(cfg) // cfg.n_heads): n}
+    route = bwd_source if bwd else fwd_source
+    return {route(cfg.dtype, d_inner(cfg) // cfg.n_heads): n}
 
 
 def _device_kernels(records: dict, launched: dict):
@@ -2250,6 +2340,7 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
                   else (torch.from_numpy(fe).to(dev), torch.from_numpy(fe)))
     card = BatchServer(cfg, gpu, max_new_tokens=new, device=dev)
     host = BatchServer(cfg, cpu, max_new_tokens=new, device="cpu")
+    _zero_kernel_counts()
     # logits of prefill and of every decode step, both fed the card's
     # greedy tokens
     ((lc, cc), (lh, ch)), kept = moe_keeps(lambda: (
@@ -2296,15 +2387,30 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
                              f"{(sc.decode_steps, sc.tokens_out)} on the "
                              f"card, {(sh.decode_steps, sh.tokens_out)} "
                              f"on the CPU")
+    # the mLSTM forward once a layer in each of the two prefills (decode
+    # steps it in plain tensor ops), every float32 call on its split-TF32
+    # kernel
+    counts = _kernel_counts()
+    n_mlstm = 2 * expected_launches(cfg, 0)["mlstm_chunkwise"]
+    fwd_sources = _by_source("mlstm_chunkwise")
+    want_src = expected_mlstm_sources(cfg, n_mlstm, bwd=False)
+    if counts["mlstm_chunkwise"] != n_mlstm or fwd_sources != want_src:
+        raise AssertionError(f"{phase}: mLSTM forward launches "
+                             f"{counts['mlstm_chunkwise']} by source "
+                             f"{fwd_sources}, expected {n_mlstm}, "
+                             f"{want_src}")
     emit(phase, arch=cfg.name, n_layers=n_layers, overrides=overrides,
          dtype="float32",
          batch=batch, prompt_len=prompt_len, new_tokens=new, tolerance=tol,
          logits_max_abs_err=errs, token_gaps_where_differ=gaps,
          tokens_equal=same, decode_steps=sc.decode_steps,
          tokens_out=sc.tokens_out, first_layer_prefill_dropped=drops,
-         frontend_embeds=None if fe is None else list(fe.shape))
+         frontend_embeds=None if fe is None else list(fe.shape),
+         launches=counts, mlstm_fwd_by_source=fwd_sources)
     del card, host, gpu, cpu, cc, ch, lc, lh
     torch.cuda.empty_cache()
+    return {**counts, "mlstm_chunkwise_tf32x3": fwd_sources.get(
+        "mlstm_kernel_tf32x3.cu", 0)}
 
 
 def replayed(report) -> dict:
@@ -2588,8 +2694,9 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         want = expected_train_launches(cfg, 1)
-        want_src = expected_mlstm_bwd_sources(cfg,
-                                              want["mlstm_chunkwise_bwd"])
+        want_src = expected_mlstm_sources(cfg, want["mlstm_chunkwise_bwd"])
+        want_fwd_src = expected_mlstm_sources(cfg, want["mlstm_chunkwise"],
+                                              bwd=False)
         steps = []
         for step in range(warm + timed):
             data = tr.data.batch(step)
@@ -2612,12 +2719,14 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
             if counts != want:
                 raise AssertionError(f"{phase} step {step}: launches "
                                      f"{counts}, expected {want}")
-            sources = _bwd_by_source("mlstm_chunkwise_bwd")
-            if sources != want_src:
+            sources = _by_source("mlstm_chunkwise_bwd")
+            fwd_sources = _by_source("mlstm_chunkwise")
+            if sources != want_src or fwd_sources != want_fwd_src:
                 raise AssertionError(f"{phase} step {step}: mLSTM backward "
-                                     f"by source {sources}, expected "
-                                     f"{want_src}")
-            by_source = _bwd_by_source()
+                                     f"by source {sources}, forward "
+                                     f"{fwd_sources}, expected {want_src}, "
+                                     f"{want_fwd_src}")
+            by_source = _by_source()
             if by_source != expected_bwd_sources(
                     torch, cfg, want["flash_attention_bwd"]):
                 raise AssertionError(f"{phase} step {step}: attention "
@@ -2680,6 +2789,7 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
          step_s_median=med, tokens_per_s=batch * seq_len / med,
          peak_memory_bytes=peak, expected_launches_per_step=want,
          mlstm_bwd_by_source_per_step=want_src,
+         mlstm_fwd_by_source_per_step=want_fwd_src,
          moe_slots=None if drops is None else
          batch * seq_len * cfg.top_k,
          moe_dropped_slots_by_layer=drops,
@@ -2767,17 +2877,23 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
     want = expected_train_launches(cfg, n_steps)
     if counts != want:
         raise AssertionError(f"{phase}: launches {counts}, expected {want}")
-    # every float32 attention and mLSTM backward on its split-TF32 kernel
-    by_source = _bwd_by_source()
+    # every float32 attention backward and mLSTM forward and backward on
+    # its split-TF32 kernel
+    by_source = _by_source()
     if by_source != expected_bwd_sources(torch, cfg,
                                          want["flash_attention_bwd"]):
         raise AssertionError(f"{phase}: attention backward by source "
                              f"{by_source}")
-    mlstm_by_source = _bwd_by_source("mlstm_chunkwise_bwd")
-    if mlstm_by_source != expected_mlstm_bwd_sources(
+    mlstm_by_source = _by_source("mlstm_chunkwise_bwd")
+    if mlstm_by_source != expected_mlstm_sources(
             cfg, want["mlstm_chunkwise_bwd"]):
         raise AssertionError(f"{phase}: mLSTM backward by source "
                              f"{mlstm_by_source}")
+    mlstm_fwd_by_source = _by_source("mlstm_chunkwise")
+    if mlstm_fwd_by_source != expected_mlstm_sources(
+            cfg, want["mlstm_chunkwise"], bwd=False):
+        raise AssertionError(f"{phase}: mLSTM forward by source "
+                             f"{mlstm_fwd_by_source}")
     (pc, oc), (ph, oh) = states["card"], states["cpu"]
     worst = {}
     for part, a_tree, c_tree in (("params", pc, ph), ("m", oc["m"], oh["m"]),
@@ -2802,11 +2918,14 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
          peak_lr=peak_lr, tolerance=tol, worst_relative_to_scale=worst,
          launches=counts, attention_bwd_by_source=by_source,
          mlstm_bwd_by_source=mlstm_by_source,
+         mlstm_fwd_by_source=mlstm_fwd_by_source,
          seconds=seconds, host_bytes_available_before=host_free)
     return {**counts, "flash_attention_bwd_tf32x3": by_source.get(
         "flash_attention_bwd_tf32x3.cu", 0),
         "mlstm_chunkwise_bwd_tf32x3": mlstm_by_source.get(
-            "mlstm_kernel_bwd_tf32x3.cu", 0)}
+            "mlstm_kernel_bwd_tf32x3.cu", 0),
+        "mlstm_chunkwise_tf32x3": mlstm_fwd_by_source.get(
+            "mlstm_kernel_tf32x3.cu", 0)}
 
 
 def host_bytes_available() -> int:
@@ -2962,8 +3081,8 @@ def main(argv=None) -> int:
                        "serve_parity_rglru")
     by_path["serve_xlstm"] = phase_serve(torch, np, dev, SERVE_XLSTM,
                                          "serve_xlstm", seed=9)
-    phase_serve_parity(torch, np, dev, SERVE_XLSTM[0], PARITY_XLSTM,
-                       "serve_parity_xlstm")
+    by_path["serve_parity_xlstm"] = phase_serve_parity(
+        torch, np, dev, SERVE_XLSTM[0], PARITY_XLSTM, "serve_parity_xlstm")
     phase_live_serve(torch, dev)
     for spec, parity, fam, seed in (
             (SERVE_MOE, PARITY_MOE, "moe", 10),
@@ -2992,10 +3111,10 @@ def main(argv=None) -> int:
                   "decode_attention", "rglru_scan", "rglru_scan_bwd",
                   "mlstm_chunkwise", "mlstm_chunkwise_bwd"):
         paths[kname] = {p: c[kname] for p, c in by_path.items() if c[kname]}
-    # each backward by source: the float32 split-TF32 kernel's launches
-    # (the parity phases, each holding every one to that source) and the
-    # bf16 kernel's, the rest
-    for kname in ("flash_attention_bwd", "mlstm_chunkwise_bwd"):
+    # the mLSTM forward and each backward by source: the float32
+    # split-TF32 kernel's launches (the parity phases, each holding every
+    # one to that source) and the bf16 kernel's, the rest
+    for kname in BY_SOURCE:
         key = f"{kname}_tf32x3"
         tf32 = {p: c[key] for p, c in by_path.items() if c.get(key)}
         paths[kname] = {p: n - tf32.get(p, 0)
@@ -3024,9 +3143,12 @@ def main(argv=None) -> int:
              "src/repro/kernels/decode_attention.py:74"),
             ("rglru_scan", rg, "src/repro_torch/kernels/csrc/rglru_scan.cu",
              "src/repro/kernels/rglru_scan.py:60"),
-            ("mlstm_chunkwise", ml,
-             f"src/repro_torch/kernels/csrc/{ml['kernel']}",
+            ("mlstm_chunkwise", ml[0],
+             f"src/repro_torch/kernels/csrc/{ml[0]['kernel']}",
              "src/repro/kernels/mlstm_kernel.py:79"),
+            ("mlstm_chunkwise_tf32x3", ml[1],
+             f"src/repro_torch/kernels/csrc/{ml[1]['kernel']}",
+             "src/repro/kernels/mlstm_kernel.py:79 in float32"),
             ("rglru_scan_bwd", rgb,
              "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
              "gradient of src/repro/kernels/rglru_scan.py:60 (the JAX "

@@ -33,7 +33,8 @@ SOURCES = ("minskew", "hub_route", "flash_attention", "flash_attention_sm90",
            "flash_attention_bwd", "flash_attention_bwd_sm90",
            "flash_attention_bwd_tf32x3",
            "decode_attention", "rglru_scan", "rglru_scan_bwd", "mlstm_kernel",
-           "mlstm_kernel_sm90", "mlstm_kernel_bwd", "mlstm_kernel_bwd_sm90",
+           "mlstm_kernel_sm90", "mlstm_kernel_tf32x3", "mlstm_kernel_bwd",
+           "mlstm_kernel_bwd_sm90",
            "mlstm_kernel_bwd_tf32x3", "launch_floor")
 
 

@@ -48,13 +48,15 @@
 // float32 FMAs from shared memory with two loads per four FMAs, so
 // shared-memory bandwidth caps it near half the float32 peak; the C slab
 // makes a round trip to device memory (or L2) per chunk, 8 bytes per
-// 4 L FLOPs.  This design now serves float32 at every head dim, and
-// bf16 only where the tensor-core kernel does not apply (hd not a
-// multiple of 8, or above mlstm_sm90_max_hd()): bf16 inputs otherwise run
-// mlstm_kernel_sm90.cu, whose products are exact bf16 x bf16 in fp32
-// with C rounded to bf16 only for q C and the carry update split so that
-// C keeps fp32 accuracy.  float32 stays here: TF32 would change the
-// numbers the float32 model computes.
+// 4 L FLOPs.  This design now serves only the head dims the two
+// tensor-core sources do not take (mlstm_kernel.fwd_source): hd not a
+// multiple of 8, or above their limits (mlstm_sm90_max_hd() for bf16,
+// mlstm_tf32x3_max_hd() for float32).  bf16 otherwise runs
+// mlstm_kernel_sm90.cu, whose products are exact bf16 x bf16 in fp32 with
+// C rounded to bf16 only for q C and the carry update split so that C
+// keeps fp32 accuracy; float32 runs mlstm_kernel_tf32x3.cu, whose every
+// product is three TF32 products of operands split into hi and lo parts,
+// which keeps float32 accuracy where a single TF32 pass would not.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

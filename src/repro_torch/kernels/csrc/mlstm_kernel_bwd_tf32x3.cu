@@ -33,7 +33,7 @@
 // device memory into a fragment, into hi = cvt.rna.tf32(x) and lo =
 // cvt.rna.tf32(x - hi) (sm90.cuh: split_tf32), and every product A B is three
 // mma.sync.m16n8k8 tf32 into float32 accumulators, per k-step of 8: lo(A)
-// hi(B), hi(A) lo(B), then hi(A) hi(B).  That covers S = q k^T, VD = dh v^T,
+// hi(B), hi(A) lo(B), then hi(A) hi(B) (sm90.cuh: mma_tf32x3).  That covers S = q k^T, VD = dh v^T,
 // u^T = C dh^T, y^T = dC' v^T, z^T = dC'^T k^T, both carries' updates, dq =
 // dS~ k, the chunk-internal dk = dS~^T q and dv = (S / m)^T dh.  No operand
 // is rounded below float32 otherwise: C stays float32 for u and for <dC', C>,
@@ -150,36 +150,6 @@ __device__ __forceinline__ void stage64(float* dst, const float* src, int hd,
   }
 }
 
-// The split's three products, per k-step: lo(A) hi(B), hi(A) lo(B), hi(A)
-// hi(B), into the same accumulator.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma_tf32_1688(d, al, bh0, bh1);
-  mma_tf32_1688(d, ah, bl0, bl1);
-  mma_tf32_1688(d, ah, bh0, bh1);
-}
-
-// An A fragment's four values, split.
-__device__ __forceinline__ void split4(float x0, float x1, float x2, float x3,
-                                       uint32_t (&h)[4], uint32_t (&l)[4]) {
-  split_tf32(x0, h[0], l[0]);
-  split_tf32(x1, h[1], l[1]);
-  split_tf32(x2, h[2], l[2]);
-  split_tf32(x3, h[3], l[3]);
-}
-
-// acc += A B over one k-step, B's two rows given as floats: split, then the
-// three products.
-__device__ __forceinline__ void mma3f(float (&d)[4], const uint32_t (&ah)[4],
-                                      const uint32_t (&al)[4], float b0,
-                                      float b1) {
-  uint32_t h0, l0, h1, l1;
-  split_tf32(b0, h0, l0);
-  split_tf32(b1, h1, l1);
-  mma3(d, ah, al, h0, h1, l0, l1);
-}
-
 // ---------------------------------------------------------------- 1
 
 __global__ void __launch_bounds__(THREADS)
@@ -248,11 +218,11 @@ mlstm_bwd_tf32x3_scores(const float* __restrict__ q, const float* __restrict__ k
       const float2 x0 = *reinterpret_cast<const float2*>(at + kk);
       const float2 x1 = *reinterpret_cast<const float2*>(at + 8 * LDT + kk);
       uint32_t ah[4], al[4];
-      split4(x0.x, x1.x, x0.y, x1.y, ah, al);
+      split4_tf32(x0.x, x1.x, x0.y, x1.y, ah, al);
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const float2 y = *reinterpret_cast<const float2*>(bt + 8 * n * LDT + kk);
-        mma3f(part[n], ah, al, y.x, y.y);
+        mma_tf32x3f(part[n], ah, al, y.x, y.y);
       }
     }
 #pragma unroll
@@ -434,9 +404,10 @@ mlstm_bwd_tf32x3_dwalk(const float* __restrict__ k, const float* __restrict__ q,
         const float w0 = rb[R_WQ * L + i0], w1 = rb[R_WQ * L + i1];
         const float* d0p = dh + (row0 + i0) * hd;
         const float* d1p = dh + (row0 + i1) * hd;
-        split4(e < hd ? d0p[e] * w0 : 0.f, e + 8 < hd ? d0p[e + 8] * w0 : 0.f,
-               e < hd ? d1p[e] * w1 : 0.f, e + 8 < hd ? d1p[e + 8] * w1 : 0.f,
-               vah[ks], val[ks]);
+        split4_tf32(e < hd ? d0p[e] * w0 : 0.f,
+                    e + 8 < hd ? d0p[e + 8] * w0 : 0.f,
+                    e < hd ? d1p[e] * w1 : 0.f,
+                    e + 8 < hd ? d1p[e + 8] * w1 : 0.f, vah[ks], val[ks]);
       }
       decay = rb[R_DECAY * L];
     }
@@ -467,7 +438,7 @@ mlstm_bwd_tf32x3_dwalk(const float* __restrict__ k, const float* __restrict__ q,
     uint32_t ah[2][4], al[2][4];  // dC'^T: A of z, k over d (0, 2, .., 7)
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk)
-      split4(lo[kk].x, hi[kk].x, lo[kk].y, hi[kk].y, ah[kk], al[kk]);
+      split4_tf32(lo[kk].x, hi[kk].x, lo[kk].y, hi[kk].y, ah[kk], al[kk]);
     // x = 0 .. 7: z^T += dC'^T k^T for rows j 8 x .. + 7 over the warp's 16
     // columns d; and k-step x (rows i 8 x .. + 7) of the carry update dC^T =
     // exp(a_L) dC'^T + (dh r / m)^T q, the chunk's part summed from zero in
@@ -488,11 +459,11 @@ mlstm_bwd_tf32x3_dwalk(const float* __restrict__ k, const float* __restrict__ q,
       for (int kk = 0; kk < 2; ++kk) {
         const float2 y =
             *reinterpret_cast<const float2*>(kb + 8 * x * LDT + 8 * kk);
-        mma3f(z[x], ah[kk], al[kk], y.x, y.y);
+        mma_tf32x3f(z[x], ah[kk], al[kk], y.x, y.y);
       }
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
-        mma3f(fr[kk][x & 1], vah[x], val[x], qb[8 * x * LDT + 8 * kk],
+        mma_tf32x3f(fr[kk][x & 1], vah[x], val[x], qb[8 * x * LDT + 8 * kk],
               qb[(8 * x + 4) * LDT + 8 * kk]);
     }
 #pragma unroll
@@ -636,9 +607,10 @@ mlstm_bwd_tf32x3_cwalk(const float* __restrict__ dh, const float* __restrict__ v
         const float w0 = rb[R_WC * L + j0], w1 = rb[R_WC * L + j1];
         const float* k0p = k + (row0 + j0) * hd;
         const float* k1p = k + (row0 + j1) * hd;
-        split4(d < hd ? k0p[d] * w0 : 0.f, d + 8 < hd ? k0p[d + 8] * w0 : 0.f,
-               d < hd ? k1p[d] * w1 : 0.f, d + 8 < hd ? k1p[d + 8] * w1 : 0.f,
-               kwh[ks], kwl[ks]);
+        split4_tf32(d < hd ? k0p[d] * w0 : 0.f,
+                    d + 8 < hd ? k0p[d + 8] * w0 : 0.f,
+                    d < hd ? k1p[d] * w1 : 0.f,
+                    d + 8 < hd ? k1p[d + 8] * w1 : 0.f, kwh[ks], kwl[ks]);
       }
       decay = rb[R_DECAY * L];
     }
@@ -656,7 +628,7 @@ mlstm_bwd_tf32x3_cwalk(const float* __restrict__ dh, const float* __restrict__ v
     for (int kk = 0; kk < 2; ++kk) {
       lo[kk] = *reinterpret_cast<const float2*>(crow + 8 * kk);
       hi[kk] = *reinterpret_cast<const float2*>(crow + 8 * cst + 8 * kk);
-      split4(lo[kk].x, hi[kk].x, lo[kk].y, hi[kk].y, ah[kk], al[kk]);
+      split4_tf32(lo[kk].x, hi[kk].x, lo[kk].y, hi[kk].y, ah[kk], al[kk]);
     }
     // x = 0 .. 7: u^T += C dh^T for rows i 8 x .. + 7 over the warp's 16
     // columns e; and k-step x (rows j 8 x .. + 7) of the carry update C =
@@ -677,11 +649,11 @@ mlstm_bwd_tf32x3_cwalk(const float* __restrict__ dh, const float* __restrict__ v
       for (int kk = 0; kk < 2; ++kk) {
         const float2 b =
             *reinterpret_cast<const float2*>(db + 8 * x * LDT + 8 * kk);
-        mma3f(u[x], ah[kk], al[kk], b.x, b.y);
+        mma_tf32x3f(u[x], ah[kk], al[kk], b.x, b.y);
       }
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
-        mma3f(fr[kk][x & 1], kwh[x], kwl[x], vc[8 * x * LDT + 8 * kk],
+        mma_tf32x3f(fr[kk][x & 1], kwh[x], kwl[x], vc[8 * x * LDT + 8 * kk],
               vc[(8 * x + 4) * LDT + 8 * kk]);
     }
 #pragma unroll
@@ -704,7 +676,7 @@ mlstm_bwd_tf32x3_cwalk(const float* __restrict__ dh, const float* __restrict__ v
       dot = fmaf(lo[kk].y, c01, dot);
       dot = fmaf(hi[kk].x, c10, dot);
       dot = fmaf(hi[kk].y, c11, dot);
-      split4(c00, c10, c01, c11, ah[kk], al[kk]);
+      split4_tf32(c00, c10, c01, c11, ah[kk], al[kk]);
     }
     const float* vb = vt + g * LDT + el + 2 * tq;
 #pragma unroll
@@ -713,7 +685,7 @@ mlstm_bwd_tf32x3_cwalk(const float* __restrict__ dh, const float* __restrict__ v
       for (int kk = 0; kk < 2; ++kk) {
         const float2 b =
             *reinterpret_cast<const float2*>(vb + 8 * x * LDT + 8 * kk);
-        mma3f(y[x], ah[kk], al[kk], b.x, b.y);
+        mma_tf32x3f(y[x], ah[kk], al[kk], b.x, b.y);
       }
 
     if (et == nd - 1) {
@@ -917,15 +889,15 @@ mlstm_bwd_tf32x3_intra(const float* __restrict__ q, const float* __restrict__ k,
       const float* p1 = ds + (mi + g) * LDX + c;
       const float* p2 = dst + (mi + g) * LDX + c;
       const float* p3 = pt + (mi + g) * LDX + c;
-      split4(p1[0], p1[8 * LDX], p1[4], p1[8 * LDX + 4], h1, l1);
-      split4(p2[0], p2[8 * LDX], p2[4], p2[8 * LDX + 4], h2, l2);
-      split4(p3[0], p3[8 * LDX], p3[4], p3[8 * LDX + 4], h3, l3);
+      split4_tf32(p1[0], p1[8 * LDX], p1[4], p1[8 * LDX + 4], h1, l1);
+      split4_tf32(p2[0], p2[8 * LDX], p2[4], p2[8 * LDX + 4], h2, l2);
+      split4_tf32(p3[0], p3[8 * LDX], p3[4], p3[8 * LDX + 4], h3, l3);
       const int o = c * LDT + nh + g;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        mma3f(aq[n], h1, l1, kt[o + 8 * n], kt[o + 4 * LDT + 8 * n]);
-        mma3f(ak[n], h2, l2, qt[o + 8 * n], qt[o + 4 * LDT + 8 * n]);
-        mma3f(av[n], h3, l3, ht[o + 8 * n], ht[o + 4 * LDT + 8 * n]);
+        mma_tf32x3f(aq[n], h1, l1, kt[o + 8 * n], kt[o + 4 * LDT + 8 * n]);
+        mma_tf32x3f(ak[n], h2, l2, qt[o + 8 * n], qt[o + 4 * LDT + 8 * n]);
+        mma_tf32x3f(av[n], h3, l3, ht[o + 8 * n], ht[o + 4 * LDT + 8 * n]);
       }
     }
 #pragma unroll

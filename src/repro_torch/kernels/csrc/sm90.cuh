@@ -8,7 +8,9 @@
 // - ldmatrix and mma.sync m16n8k16 bf16 products with fp32 accumulators
 //   (mlstm_kernel_sm90.cu);
 // - the tf32 rounding and hi/lo split, and mma.sync m16n8k8 tf32 products
-//   with fp32 accumulators (flash_attention_bwd_tf32x3.cu);
+//   with fp32 accumulators (flash_attention_bwd_tf32x3.cu), a split in
+//   fewer instructions, and the three products of a split
+//   (mlstm_kernel{,_bwd}_tf32x3.cu);
 // - wgmma: shared-memory matrix descriptors of operands under the 128-byte
 //   swizzle (what TMA's SWIZZLE_128B writes) and the m64nNk16 bf16
 //   products with fp32 accumulators (flash_attention_sm90.cu);
@@ -109,6 +111,65 @@ __device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo for the three products, in two integer instructions and a
+// subtract where split_tf32 takes nine (ptxas expands cvt.rna.tf32.f32 to
+// four): hi = the bits of cvt.rna.tf32(x) for finite x (half of the 13
+// dropped bits' weight added to the magnitude, ties away from zero, then
+// the bits cleared), lo = x - hi (exact), which mma.sync reads as tf32 by
+// dropping its low 13 bits: lo truncated, an error of at most 2^-21 |x|
+// where split_tf32's rounding leaves 2^-22.
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// The two splits as types, for the helpers below (split_tf32 by default).
+struct SplitRna {
+  static __device__ __forceinline__ void run(float x, uint32_t& h,
+                                             uint32_t& l) {
+    split_tf32(x, h, l);
+  }
+};
+struct SplitFast {
+  static __device__ __forceinline__ void run(float x, uint32_t& h,
+                                             uint32_t& l) {
+    split_tf32_fast(x, h, l);
+  }
+};
+// The split's three products, per k-step: lo(A) hi(B), hi(A) lo(B), hi(A)
+// hi(B), into the same accumulator (the mLSTM's split-TF32 kernels).
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32_1688(d, al, bh0, bh1);
+  mma_tf32_1688(d, ah, bl0, bl1);
+  mma_tf32_1688(d, ah, bh0, bh1);
+}
+// An A fragment's four values, split.
+template <class Split = SplitRna>
+__device__ __forceinline__ void split4_tf32(float x0, float x1, float x2,
+                                            float x3, uint32_t (&h)[4],
+                                            uint32_t (&l)[4]) {
+  Split::run(x0, h[0], l[0]);
+  Split::run(x1, h[1], l[1]);
+  Split::run(x2, h[2], l[2]);
+  Split::run(x3, h[3], l[3]);
+}
+// acc += A B over one k-step, B's two rows given as floats: split, then the
+// three products.
+template <class Split = SplitRna>
+__device__ __forceinline__ void mma_tf32x3f(float (&d)[4],
+                                            const uint32_t (&ah)[4],
+                                            const uint32_t (&al)[4], float b0,
+                                            float b1) {
+  uint32_t h0, l0, h1, l1;
+  Split::run(b0, h0, l0);
+  Split::run(b1, h1, l1);
+  mma_tf32x3(d, ah, al, h0, h1, l0, l1);
 }
 
 // wgmma matrix descriptor for a B128-swizzled operand at shared address

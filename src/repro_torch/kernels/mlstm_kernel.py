@@ -10,7 +10,7 @@ starts from a zero carry and keeps its final value in VMEM scratch, it
 takes an initial (C, n) and returns the final one: the model's prefill
 hands it to decode.
 
-Two kernels, chosen by dtype and head dim only (:func:`uses_sm90`):
+Three sources, chosen by dtype and head dim only (:func:`fwd_source`):
 
 - bf16 with hd a multiple of 8 up to ``SM90_MAX_HD`` = 2,816 runs
   ``csrc/mlstm_kernel_sm90.cu``: every product on the tensor cores
@@ -19,7 +19,13 @@ Two kernels, chosen by dtype and head dim only (:func:`uses_sm90`):
   TMA, and the gated factor of the carry update split into two bf16
   parts so that C keeps float32 accuracy (see the source note, and
   tests/test_torch_mlstm_split.py);
-- float32 at any hd, and every other bf16 head dim, run the first design,
+- float32 with hd a multiple of 8 up to ``TF32X3_MAX_HD`` = 1,216 runs
+  ``csrc/mlstm_kernel_tf32x3.cu``: the same three passes with every
+  product on the tensor cores as three TF32 ``mma.sync`` of operands
+  split into hi and lo parts, C held in float32 in shared memory, each
+  chunk's carry update summed from zero and joined by one rounded
+  ``fmaf`` (see its source note, and tests/test_torch_mlstm_tf32x3.py);
+- every other head dim, in either dtype, runs the first design,
   ``csrc/mlstm_kernel.cu``: float32 FMAs on the CUDA cores with C in
   device memory.
 
@@ -69,8 +75,8 @@ on a CUDA tensor they launch a kernel or raise.  Both paths check dtypes
 and shapes first.  ``mlstm_chunkwise.launches`` and
 ``mlstm_chunkwise_bwd.launches`` count launches,
 ``mlstm_chunkwise.source`` and ``mlstm_chunkwise_bwd.source`` name the
-source of the last one, ``mlstm_chunkwise_bwd.launches_by_source`` counts
-the backward's launches by source.
+source of the last one, and ``.launches_by_source`` on each counts its
+launches by source.
 """
 from __future__ import annotations
 
@@ -89,13 +95,18 @@ from repro_torch.kernels.ref import (MLSTM_KERNEL_CHUNK, PAD_GATE,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = (torch.float32, torch.bfloat16)
-CHUNK = MLSTM_KERNEL_CHUNK     # L in csrc/mlstm_kernel{,_sm90,_bwd}.cu
+CHUNK = MLSTM_KERNEL_CHUNK     # L in csrc/mlstm_kernel*.cu
 MAX_HD = 8192
 SM90_MAX_HD = 2816            # mlstm_sm90_max_hd() in csrc/mlstm_kernel_sm90.cu
+#: mlstm_tf32x3_max_hd() in csrc/mlstm_kernel_tf32x3.cu
+TF32X3_MAX_HD = 1216
 #: mlstm_bwd_sm90_max_hd() in csrc/mlstm_kernel_bwd_sm90.cu
 SM90_BWD_MAX_HD = 1152
 #: mlstm_bwd_tf32x3_max_hd() in csrc/mlstm_kernel_bwd_tf32x3.cu
 TF32X3_BWD_MAX_HD = 1024
+FWD_SM90 = "mlstm_kernel_sm90.cu"            # bf16
+FWD_TF32X3 = "mlstm_kernel_tf32x3.cu"        # float32
+FWD_CUDA_CORES = "mlstm_kernel.cu"           # every other head dim
 BWD_SM90 = "mlstm_kernel_bwd_sm90.cu"        # bf16
 BWD_TF32X3 = "mlstm_kernel_bwd_tf32x3.cu"    # float32
 BWD_CUDA_CORES = "mlstm_kernel_bwd.cu"       # every other head dim
@@ -118,24 +129,37 @@ def _lib():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _lib_sm90():
-    """The bf16 tensor-core launcher, set up once; checks that the
-    source's chunk is ``CHUNK`` and its head-dim limit ``SM90_MAX_HD``."""
-    lib = _build.load("mlstm_kernel_sm90")
-    for name in ("mlstm_sm90_chunk_len", "mlstm_sm90_max_hd"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = _I
-    if (lib.mlstm_sm90_chunk_len(), lib.mlstm_sm90_max_hd()) != (
-            CHUNK, SM90_MAX_HD):
-        raise RuntimeError(
-            f"mlstm_kernel_sm90.cu's chunk and head-dim limit are "
-            f"{lib.mlstm_sm90_chunk_len()}, {lib.mlstm_sm90_max_hd()}; the "
-            f"wrapper expects {CHUNK}, {SM90_MAX_HD}")
-    fn = lib.mlstm_sm90_launch
-    fn.argtypes = [_P] * 13 + [_I, _I, _I, ctypes.c_double, _P]
-    fn.restype = _I
+def _checked_lib(source: str, prefix: str, max_hd: int):
+    """A tensor-core source's library, once its chunk is checked to be
+    ``CHUNK`` and its head-dim limit the one the route table expects;
+    returns ``fn(name, argtypes, restype)``, which sets up its C function
+    ``<prefix>_<name>``."""
+    lib = _build.load(source[:-len(".cu")])
+
+    def fn(name, argtypes, restype):
+        f = getattr(lib, f"{prefix}_{name}")
+        f.argtypes, f.restype = argtypes, restype
+        return f
+    chunk_len, limit = (fn(name, [], _I) for name in ("chunk_len", "max_hd"))
+    if (chunk_len(), limit()) != (CHUNK, max_hd):
+        raise RuntimeError(f"{source}'s chunk and head-dim limit are "
+                           f"{chunk_len()}, {limit()}; the wrapper expects "
+                           f"{CHUNK}, {max_hd}")
     return fn
+
+
+#: each tensor-core forward source: the infix of its C functions, its
+#: head-dim limit (the source's ``mlstm_<infix>_max_hd()``)
+_TENSOR_CORE_FWD = {FWD_SM90: ("sm90", SM90_MAX_HD),
+                    FWD_TF32X3: ("tf32x3", TF32X3_MAX_HD)}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_fwd_tensor_cores(source: str):
+    """A tensor-core forward's launcher, set up once."""
+    infix, max_hd = _TENSOR_CORE_FWD[source]
+    return _checked_lib(source, f"mlstm_{infix}", max_hd)(
+        "launch", [_P] * 13 + [_I, _I, _I, ctypes.c_double, _P], _I)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,28 +191,30 @@ _TENSOR_CORE_BWD = {BWD_SM90: ("sm90", SM90_BWD_MAX_HD),
 @functools.lru_cache(maxsize=None)
 def _lib_bwd_tensor_cores(source: str):
     """A tensor-core backward's launcher and workspace-size function, set
-    up once; checks that the source's chunk is ``CHUNK`` and its head-dim
-    limit the one the route table expects."""
+    up once."""
     infix, max_hd = _TENSOR_CORE_BWD[source]
-    lib = _build.load(source[:-len(".cu")])
-
-    def fn(name, argtypes, restype):
-        f = getattr(lib, f"mlstm_bwd_{infix}_{name}")
-        f.argtypes, f.restype = argtypes, restype
-        return f
-    chunk_len, limit = (fn(name, [], _I) for name in ("chunk_len", "max_hd"))
-    if (chunk_len(), limit()) != (CHUNK, max_hd):
-        raise RuntimeError(f"{source}'s chunk and head-dim limit are "
-                           f"{chunk_len()}, {limit()}; the wrapper expects "
-                           f"{CHUNK}, {max_hd}")
+    fn = _checked_lib(source, f"mlstm_bwd_{infix}", max_hd)
     return (fn("launch", [_P] * 18 + [_I, _I, _I, ctypes.c_double, _P], _I),
             fn("workspace_bytes", [_I, _I, _I], ctypes.c_longlong))
 
 
+def fwd_source(dtype: torch.dtype, hd: int) -> str:
+    """The source a CUDA call of :func:`mlstm_chunkwise` at this dtype and
+    head dim runs: ``mlstm_kernel_sm90.cu`` for bf16 and
+    ``mlstm_kernel_tf32x3.cu`` for float32, each at hd a multiple of 8 up
+    to its limit; ``mlstm_kernel.cu`` for every other head dim."""
+    if hd % 8 == 0:
+        if dtype == torch.bfloat16 and hd <= SM90_MAX_HD:
+            return FWD_SM90
+        if dtype == torch.float32 and hd <= TF32X3_MAX_HD:
+            return FWD_TF32X3
+    return FWD_CUDA_CORES
+
+
 def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
     """Whether a CUDA call at this dtype and head dim runs
-    ``csrc/mlstm_kernel_sm90.cu`` (else ``csrc/mlstm_kernel.cu``)."""
-    return dtype == torch.bfloat16 and hd % 8 == 0 and hd <= SM90_MAX_HD
+    ``csrc/mlstm_kernel_sm90.cu``."""
+    return fwd_source(dtype, hd) == FWD_SM90
 
 
 def bwd_source(dtype: torch.dtype, hd: int) -> str:
@@ -281,54 +307,74 @@ def _launch(q, k, v, i_raw, f_raw, c0, n0, s):
         return h[:, :s], (
             torch.zeros((bh, hd, hd), **f32) if c0 is None else c0.clone(),
             torch.zeros((bh, hd), **f32) if n0 is None else n0.clone())
+    c = torch.empty((bh, hd, hd), **f32)
     n = torch.empty((bh, hd), **f32)
-    nc = sp // CHUNK
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if uses_sm90(q.dtype, hd):
-            source = "mlstm_kernel_sm90.cu"
-            c = torch.empty((bh, hd, hd), **f32)
-            sc = torch.empty((bh, nc, CHUNK, CHUNK), dtype=torch.bfloat16,
-                             device=dev)
-            gates = torch.empty((bh, nc, 4, CHUNK), **f32)
-            ksum = torch.empty((bh, nc, hd), **f32)
-            err = _lib_sm90()(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), i_raw.data_ptr(),
-                f_raw.data_ptr(), sc.data_ptr(), gates.data_ptr(),
-                ksum.data_ptr(), None if c0 is None else c0.data_ptr(),
-                None if n0 is None else n0.data_ptr(), c.data_ptr(),
-                n.data_ptr(), h.data_ptr(), bh, sp, hd, 1.0 / math.sqrt(hd),
-                stream)
-        else:
-            source = "mlstm_kernel.cu"
-            c = (torch.zeros((bh, hd, hd), **f32) if c0 is None
-                 else c0.clone())
-            if n0 is None:
-                n0 = torch.zeros((bh, hd), **f32)
-            sc = torch.empty((bh, nc, CHUNK, CHUNK), **f32)
-            den = torch.empty((bh, nc, CHUNK), **f32)
-            err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         i_raw.data_ptr(), f_raw.data_ptr(), sc.data_ptr(),
-                         den.data_ptr(), n0.data_ptr(), c.data_ptr(),
-                         n.data_ptr(), h.data_ptr(), bh, sp, hd,
-                         1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
-                         stream)
+    source = fwd_source(q.dtype, hd)
+    ins = (q, k, v, i_raw, f_raw, c0, n0, c, n, h)
+    err = (_fwd_cuda_cores(*ins) if source == FWD_CUDA_CORES
+           else _fwd_tensor_cores(source, *ins))
     if err != 0:
         raise RuntimeError(
             f"mlstm_chunkwise kernel launch failed ({source}): CUDA error "
             f"{err}")
     mlstm_chunkwise.launches += 1
     mlstm_chunkwise.source = source
+    by_source = mlstm_chunkwise.launches_by_source
+    by_source[source] = by_source.get(source, 0) + 1
     return h[:, :s], (c, n)
+
+
+def _fwd_cuda_cores(q, k, v, i_raw, f_raw, c0, n0, c, n, h) -> int:
+    """``csrc/mlstm_kernel.cu`` on tail-padded contiguous inputs of either
+    dtype, into the given outputs (c takes the initial C first); returns
+    its error code.  Its scratch is allocated here for the call."""
+    bh, sp, hd = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if c0 is None:
+        c.zero_()
+    else:
+        c.copy_(c0)
+    if n0 is None:
+        n0 = torch.zeros((bh, hd), **f32)
+    sc = torch.empty((bh, sp // CHUNK, CHUNK, CHUNK), **f32)
+    den = torch.empty((bh, sp // CHUNK, CHUNK), **f32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return _lib()(*(_ptr(t) for t in (q, k, v, i_raw, f_raw, sc, den, n0,
+                                          c, n, h)),
+                      bh, sp, hd, 1.0 / math.sqrt(hd),
+                      int(q.dtype == torch.bfloat16), stream)
+
+
+def _fwd_tensor_cores(source, q, k, v, i_raw, f_raw, c0, n0, c, n,
+                      h) -> int:
+    """A tensor-core source (``csrc/mlstm_kernel_sm90.cu``, bf16, or
+    ``csrc/mlstm_kernel_tf32x3.cu``, float32) on tail-padded contiguous
+    inputs, into the given outputs; returns its error code.  Its scratch
+    (S in the inputs' dtype, the gates and sum_j wc_j k_j in float32) is
+    allocated here for the call."""
+    bh, sp, hd = q.shape
+    nc = sp // CHUNK
+    f32 = dict(dtype=torch.float32, device=q.device)
+    sc = torch.empty((bh, nc, CHUNK, CHUNK), dtype=q.dtype, device=q.device)
+    gates = torch.empty((bh, nc, 4, CHUNK), **f32)
+    ksum = torch.empty((bh, nc, hd), **f32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return _lib_fwd_tensor_cores(source)(
+            *(_ptr(t) for t in (q, k, v, i_raw, f_raw, sc, gates, ksum, c0,
+                                n0, c, n, h)),
+            bh, sp, hd, 1.0 / math.sqrt(hd), stream)
 
 
 mlstm_chunkwise.launches = 0
 mlstm_chunkwise.source = None
+mlstm_chunkwise.launches_by_source = {}
 
 
 class MlstmChunkwise(torch.autograd.Function):
     """:func:`mlstm_chunkwise` on CUDA tensors with its gradient: forward
-    through either forward kernel, backward through
+    through the source :func:`fwd_source` picks, backward through
     :func:`mlstm_chunkwise_bwd`.  Saves the inputs only (the backward
     rebuilds the states); a final (C, n) that the loss does not use gets
     no gradient tensor (zeros to the kernel)."""

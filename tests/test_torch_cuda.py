@@ -84,11 +84,12 @@ MLSTM_SHAPES = [(2, 200, 64, True), (3, 128, 32, False), (1, 70, 100, True)]
     [(dt, *shape) for dt in (torch.float32, torch.bfloat16)
      for shape in MLSTM_SHAPES]
     + [(torch.bfloat16, 2, 128, 1024, True),
-       (torch.bfloat16, 1, 64, 2880, True)])
+       (torch.bfloat16, 1, 64, 2880, True),
+       (torch.float32, 2, 200, 1024, True)])
 def test_mlstm_kernel_vs_plain(dev, dtype, bh, s, hd, carry):
-    from repro_torch.kernels.mlstm_kernel import (mlstm_chunkwise,
-                                                  mlstm_flat_plain,
-                                                  uses_sm90)
+    from repro_torch.kernels.mlstm_kernel import (fwd_source,
+                                                  mlstm_chunkwise,
+                                                  mlstm_flat_plain)
     g = torch.Generator(device=dev).manual_seed(1)
     q, k, v = (torch.randn(bh, s, hd, generator=g, device=dev).mul(0.3)
                .to(dtype) for _ in range(3))
@@ -100,9 +101,9 @@ def test_mlstm_kernel_vs_plain(dev, dtype, bh, s, hd, carry):
     before = mlstm_chunkwise.launches
     h, (c, n) = mlstm_chunkwise(q, k, v, ig, fg, c0, n0)
     assert mlstm_chunkwise.launches == before + 1
-    assert mlstm_chunkwise.source == ("mlstm_kernel_sm90.cu"
-                                      if uses_sm90(dtype, hd)
-                                      else "mlstm_kernel.cu")
+    assert mlstm_chunkwise.source == fwd_source(dtype, hd)
+    again = mlstm_chunkwise(q, k, v, ig, fg, c0, n0)
+    assert torch.equal(h, again[0]) and torch.equal(c, again[1][0])
     hw, (cw, nw) = mlstm_flat_plain(q, k, v, ig, fg, c0, n0)
     _close(h, hw, dtype)
     _close(c, cw)

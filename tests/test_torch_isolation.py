@@ -53,7 +53,8 @@ def test_port_files_exist():
                 "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
                 "flash_attention_bwd_tf32x3.cu",
                 "rglru_scan_bwd.cu", "mlstm_kernel_bwd.cu",
-                "mlstm_kernel_bwd_sm90.cu", "mlstm_kernel_bwd_tf32x3.cu"):
+                "mlstm_kernel_bwd_sm90.cu", "mlstm_kernel_bwd_tf32x3.cu",
+                "mlstm_kernel_sm90.cu", "mlstm_kernel_tf32x3.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).is_file()
 

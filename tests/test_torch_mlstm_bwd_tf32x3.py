@@ -321,8 +321,8 @@ def test_source_is_built_routed_and_uses_the_split():
     assert bwd_source(bf16, 100) == BWD_CUDA_CORES
     src = (_build.CSRC / f"{BWD_TF32X3}").read_text()
     hdr = (_build.CSRC / "sm90.cuh").read_text()
-    assert "cvt.rna.tf32.f32" in hdr
-    assert "split_tf32" in src and "mma_tf32_1688" in src
+    assert "cvt.rna.tf32.f32" in hdr and "mma_tf32_1688" in hdr
+    assert "split4_tf32" in src and "mma_tf32x3f" in src
     for name in ("scores", "den", "dwalk", "cwalk", "intra", "gates"):
         assert f"mlstm_bwd_tf32x3_{name}(" in src
     assert not any(op in src for op in ("atomicAdd", "atom.", "red."))

@@ -31,9 +31,12 @@ import torch
 
 from repro_torch.kernels.mlstm_kernel import (BWD_CUDA_CORES, BWD_SM90,
                                               BWD_TF32X3, CHUNK,
-                                              SM90_BWD_MAX_HD, SM90_MAX_HD,
-                                              bwd_source, mlstm_flat_plain,
-                                              pad_tail, uses_sm90)
+                                              FWD_CUDA_CORES, FWD_SM90,
+                                              FWD_TF32X3, SM90_BWD_MAX_HD,
+                                              SM90_MAX_HD, TF32X3_MAX_HD,
+                                              bwd_source, fwd_source,
+                                              mlstm_flat_plain, pad_tail,
+                                              uses_sm90)
 
 TOL_H, TOL_CARRY = 2e-2, 1e-4
 
@@ -137,9 +140,27 @@ def test_single_rounding_of_kw_misses_the_carry_bound(gate_on):
     (torch.bfloat16, 8, True), (torch.bfloat16, SM90_MAX_HD + 64, False),
     (torch.bfloat16, 100, False), (torch.float32, 1024, False)])
 def test_kernel_chosen_by_dtype_and_head_dim(dtype, hd, want):
-    """bf16 with hd a multiple of 8 up to the limit runs the tensor-core
-    kernel; float32, and every other bf16 head dim, the first design."""
+    """bf16 with hd a multiple of 8 up to the limit runs the bf16
+    tensor-core kernel; float32 another source (:func:`fwd_source`), and
+    every other bf16 head dim the first design."""
     assert uses_sm90(dtype, hd) is want
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 1024, FWD_SM90), (torch.bfloat16, 8, FWD_SM90),
+    (torch.bfloat16, SM90_MAX_HD + 8, FWD_CUDA_CORES),
+    (torch.bfloat16, 100, FWD_CUDA_CORES), (torch.float32, 1024, FWD_TF32X3),
+    (torch.float32, 8, FWD_TF32X3), (torch.float32, TF32X3_MAX_HD, FWD_TF32X3),
+    (torch.float32, TF32X3_MAX_HD + 8, FWD_CUDA_CORES),
+    (torch.float32, 100, FWD_CUDA_CORES)])
+def test_forward_source_by_dtype_and_head_dim(dtype, hd, want):
+    """bf16 at hd a multiple of 8 up to its limit runs the bf16
+    tensor-core forward, float32 at hd a multiple of 8 up to its limit
+    (xlstm's 1,024 among them) the split-TF32 one, every other head dim
+    the first design; ``uses_sm90`` names the first of the three."""
+    assert fwd_source(dtype, hd) == want
+    assert uses_sm90(dtype, hd) is (want == FWD_SM90)
+    assert TF32X3_MAX_HD >= 1024
 
 
 @pytest.mark.parametrize("dtype,hd,want", [
