@@ -57,7 +57,9 @@ One JSON line per phase:
    prefill shape (B=4, S=3,072, H=16, Hkv=1, hd=256, window 2,048) and
    at seamless_m4t_medium's three (B=4, 16/16 heads, hd 64: the encoder's
    256 frames, non-causal; the cross-attention's 1,024 queries against
-   256 frames; the decoder's 1,024 causal); untimed at olmoe_1b_7b's
+   256 frames; the decoder's 1,024 causal), float32 alone at the train
+   parity phases' shape (B=2, S=128, 32/8 heads, hd 128, causal: the
+   shape where the float32 kernel runs on a path); untimed at olmoe_1b_7b's
    prefill (16/16 heads, hd 128), at hd 8, 24 and 40, one query row,
    Sq < Sk under the causal mask and a window narrower than a key tile,
    and through ``ops.flash_attention`` on non-contiguous (B, S, H, hd)
@@ -106,8 +108,10 @@ One JSON line per phase:
 13b. rglru_scan_bwd — the backward kernel (``csrc/rglru_scan_bwd.cu``)
    vs its plain version (``rglru_bwd_plain``, a loop over S in reverse) at
    recurrentgemma's train shape (B=4, S=1,024, W=4,096) without and with
-   h0 (two calls bit-equal), and S = 1, S = 515 with W = 4,099, S below
-   the chunk; the plain loop timed on few calls;
+   h0, and S = 1, S = 515 with W = 4,099, S below the chunk and a long
+   chain (B=1, S=16,384, W=1,024, h0 given), every case twice and
+   bit-equal, with the kernel's T_c, warps and grid; the plain loop timed
+   on few calls;
 14. mlstm_chunkwise — the forward kernels (``csrc/mlstm_kernel_sm90.cu``
    for bfloat16 on the tensor cores, ``csrc/mlstm_kernel_tf32x3.cu`` for
    float32 on the tensor cores as split TF32 products,
@@ -207,8 +211,9 @@ One JSON line per phase:
    async engines;
 23. kernels — one object per kernel: launches on its paths (the main
    path and the sweep for ``minskew`` and ``hub_route``, the train paths
-   for the backward kernels; the float32 split-TF32 kernels apart, from
-   the parity phases), max error against the plain version,
+   for the backward kernels; the float32 split-TF32 kernels and the
+   float32 flash forward apart, from the parity phases), max error
+   against the plain version,
    times, the card's bound, the library call's time and, for the
    engine's two kernels, the launch floor.
 
@@ -1034,7 +1039,9 @@ DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 #: tests/test_kernels.py's edge shapes (GQA, padded tail, window, cross
 #: attention, hd 128), head dims that are not multiples of 16 (the bf16
 #: kernel pads them to 64 in shared memory), one query row, fewer queries
-#: than keys under the causal mask, and a window narrower than a key tile
+#: than keys under the causal mask, and a window narrower than a key tile;
+#: ``timed`` may name the one dtype a case is timed in ("float32": the
+#: train parity phases' shape, where only the float32 kernel is on a path)
 FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                ("s4096", 4, 32, 8, 4096, 4096, 128, True, 0, True),
                ("rglru_prefill", 4, 16, 1, 3072, 3072, 256, True, 2048,
@@ -1043,6 +1050,7 @@ FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                ("encdec_cross", 4, 16, 16, 1024, 256, 64, False, 0, True),
                ("encdec_self", 4, 16, 16, 1024, 1024, 64, True, 0, True),
                ("moe_prefill", 4, 16, 16, 1024, 1024, 128, True, 0, False),
+               ("parity", 2, 32, 8, 128, 128, 128, True, 0, "float32"),
                ("gqa", 1, 4, 2, 128, 128, 64, True, 0, False),
                ("padded", 1, 8, 2, 96, 96, 32, True, 0, False),
                ("window64", 1, 2, 1, 256, 256, 64, True, 64, False),
@@ -1342,7 +1350,7 @@ def phase_flash_attention(torch, np, dev):
             torch.cuda.synchronize()
             err = _err(got, want)
             _hold("flash_attention", err, dname, name)
-            if not timed:
+            if timed is not True and timed != dname:
                 edge.append({"case": name, "dtype": dname,
                              "max_abs_err": err})
                 continue
@@ -1380,7 +1388,7 @@ def phase_flash_attention(torch, np, dev):
                 del bshd
     emit("flash_attention", tolerance=ATTN_TOL, shapes=main, edge=edge,
          strided=flash_strided_views(torch, dev, g))
-    return main[0]
+    return main[0], next(r for r in main if r["case"] == "parity")
 
 
 def flash_strided_views(torch, dev, g, b=2, s=200, h=8, hkv=2, hd=128):
@@ -1476,7 +1484,7 @@ def phase_decode_attention(torch, np, dev):
 
 
 RGLRU_KERNELS = ("rglru_chained_kernel",)
-RGLRU_BWD_KERNELS = ("rglru_bwd_chained_kernel",)
+RGLRU_BWD_KERNELS = ("rglru_bwd_subchunk_kernel",)
 #: the six kernels of csrc/mlstm_kernel_bwd.cu (head dims off the
 #: tensor-core routes), of csrc/mlstm_kernel_bwd_sm90.cu (bf16) and of
 #: csrc/mlstm_kernel_bwd_tf32x3.cu (float32), each launched once a call of
@@ -1701,10 +1709,12 @@ def phase_mlstm_chunkwise(torch, np, dev):
 
 #: (B, S, W, with h0, timed) for the rglru backward: recurrentgemma's train
 #: shape without h0 (timed) and with it, then RGLRU_CASES' edge shapes (S =
-#: 1, S = 515 with W = 4,099, S below one chunk, h0 given)
+#: 1, S = 515 with W = 4,099, S below one chunk, h0 given) and a long chain
+#: (64 hops at T_c 256, where the chain is the critical path)
 RGLRU_BWD_CASES = [(4, 1024, 4096, False, True), (4, 1024, 4096, True, False),
                    (3, 1, 4096, True, False), (2, 515, 4099, True, False),
-                   (1, 300, 32, True, False), (2, 16, 8, True, False)]
+                   (1, 300, 32, True, False), (2, 16, 8, True, False),
+                   (1, 16384, 1024, True, False)]
 #: (BH, S, hd, initial carry, final-state gradients, timed) for the mLSTM
 #: backward, both dtypes: xlstm's train shape and train_parity_xlstm's
 #: (timed), S = 200 (a padded tail) with both carries, each carry alone,
@@ -1726,11 +1736,12 @@ def phase_rglru_scan_bwd(torch, np, dev):
     """The backward kernel (``csrc/rglru_scan_bwd.cu``) against its plain
     version (``rglru_bwd_plain``, a loop over S in reverse) on the card,
     float32, dlog_a, db and dh0 within ``ATTN_TOL`` x max(1, largest
-    |plain gradient|), every case twice and bit-equal; timed at the train
-    shape (the plain loop on 3 calls, profiled on 1: the profiler's host
-    cost per recorded operation).  No PyTorch call computes it."""
+    |plain gradient|), every case twice and bit-equal, each with the
+    kernel's tiling (``plan_bwd``); timed at the train shape (the plain
+    loop on 3 calls, profiled on 1: the profiler's host cost per recorded
+    operation).  No PyTorch call computes it."""
     from repro_torch.kernels.ref import rglru_bwd_plain, rglru_plain
-    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    from repro_torch.kernels.rglru_scan import plan_bwd, rglru_scan_bwd
     g = torch.Generator(device=dev).manual_seed(13)
     main, edge = [], []
     for b, s, w, with_h0, timed in RGLRU_BWD_CASES:
@@ -1755,7 +1766,7 @@ def phase_rglru_scan_bwd(torch, np, dev):
             raise AssertionError(f"rglru_scan_bwd: two calls at {(b, s, w)}"
                                  f" (h0 {with_h0}) differ")
         case = {"B": b, "S": s, "W": w, "h0": with_h0, "max_abs_err": err,
-                "scale": scale, "bit_equal": True}
+                "scale": scale, "bit_equal": True, **plan_bwd(b, s, w)}
         del got, again, want
         if not timed:
             edge.append(case)
@@ -2015,8 +2026,14 @@ def _kernel_counts():
     return {k: w.launches for k, w in _serving_wrappers().items()}
 
 
-#: the wrappers that count their launches by source
-BY_SOURCE = ("flash_attention_bwd", "mlstm_chunkwise", "mlstm_chunkwise_bwd")
+#: the wrappers that count their launches by source, each with the
+#: kernels line's entry for the launches of its float32 source (the
+#: parity phases' calls; each phase holds every call to the source its
+#: dtype picks)
+BY_SOURCE = {"flash_attention": "flash_attention_f32",
+             "flash_attention_bwd": "flash_attention_bwd_tf32x3",
+             "mlstm_chunkwise": "mlstm_chunkwise_tf32x3",
+             "mlstm_chunkwise_bwd": "mlstm_chunkwise_bwd_tf32x3"}
 
 
 def _zero_kernel_counts():
@@ -2094,6 +2111,27 @@ def expected_train_launches(cfg, n_steps: int) -> dict:
             "rglru_scan": fwd * n_rec, "rglru_scan_bwd": n_steps * n_rec,
             "mlstm_chunkwise": fwd * n_mlstm,
             "mlstm_chunkwise_bwd": n_steps * n_mlstm}
+
+
+def expected_fwd_sources(torch, cfg, n: int) -> dict:
+    """The flash forward's launches by source that ``n`` of them at
+    ``cfg`` must give: all on ``csrc/flash_attention.cu`` in float32, on
+    the bf16 tensor-core kernel otherwise; none without attention."""
+    if not n:
+        return {}
+    from repro_torch.kernels.flash_attention import FWD_F32, FWD_SM90
+    return {FWD_F32 if cfg.dtype == torch.float32 else FWD_SM90: n}
+
+
+def _hold_fwd_sources(torch, cfg, counts: dict, phase: str) -> dict:
+    """The flash forward's launches by source since the counts were set
+    to 0, held to :func:`expected_fwd_sources` of ``counts``."""
+    got = _by_source("flash_attention")
+    want = expected_fwd_sources(torch, cfg, counts["flash_attention"])
+    if got != want:
+        raise AssertionError(f"{phase}: attention forward by source {got}, "
+                             f"expected {want}")
+    return got
 
 
 def expected_bwd_sources(torch, cfg, n: int) -> dict:
@@ -2204,6 +2242,7 @@ def phase_serve(torch, np, dev, spec=SERVE, phase: str = "serve",
         if counts != want:
             raise AssertionError(f"{phase}: launches {counts}, expected "
                                  f"{want}")
+        _hold_fwd_sources(torch, cfg, counts, phase)
         runs.append({"prefill_s": st.prefill_s, "decode_s": st.decode_s,
                      "per_token_ms": st.per_token_ms,
                      "throughput_tok_s": st.throughput_tok_s,
@@ -2399,6 +2438,7 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
                              f"{counts['mlstm_chunkwise']} by source "
                              f"{fwd_sources}, expected {n_mlstm}, "
                              f"{want_src}")
+    attn_sources = _hold_fwd_sources(torch, cfg, counts, phase)
     emit(phase, arch=cfg.name, n_layers=n_layers, overrides=overrides,
          dtype="float32",
          batch=batch, prompt_len=prompt_len, new_tokens=new, tolerance=tol,
@@ -2406,11 +2446,13 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
          tokens_equal=same, decode_steps=sc.decode_steps,
          tokens_out=sc.tokens_out, first_layer_prefill_dropped=drops,
          frontend_embeds=None if fe is None else list(fe.shape),
-         launches=counts, mlstm_fwd_by_source=fwd_sources)
+         launches=counts, mlstm_fwd_by_source=fwd_sources,
+         attention_fwd_by_source=attn_sources)
     del card, host, gpu, cpu, cc, ch, lc, lh
     torch.cuda.empty_cache()
     return {**counts, "mlstm_chunkwise_tf32x3": fwd_sources.get(
-        "mlstm_kernel_tf32x3.cu", 0)}
+        "mlstm_kernel_tf32x3.cu", 0),
+        "flash_attention_f32": attn_sources.get("flash_attention.cu", 0)}
 
 
 def replayed(report) -> dict:
@@ -2731,6 +2773,7 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
                     torch, cfg, want["flash_attention_bwd"]):
                 raise AssertionError(f"{phase} step {step}: attention "
                                      f"backward by source {by_source}")
+            _hold_fwd_sources(torch, cfg, counts, f"{phase} step {step}")
             gnorm = float(metrics["grad_norm"])
             if not (np.isfinite(loss) and np.isfinite(gnorm)):
                 raise AssertionError(f"{phase} step {step}: loss {loss}, "
@@ -2894,6 +2937,7 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
             cfg, want["mlstm_chunkwise"], bwd=False):
         raise AssertionError(f"{phase}: mLSTM forward by source "
                              f"{mlstm_fwd_by_source}")
+    attn_fwd_by_source = _hold_fwd_sources(torch, cfg, counts, phase)
     (pc, oc), (ph, oh) = states["card"], states["cpu"]
     worst = {}
     for part, a_tree, c_tree in (("params", pc, ph), ("m", oc["m"], oh["m"]),
@@ -2916,7 +2960,8 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
          dtype="float32", remat=cfg.remat, batch=batch, seq_len=seq_len,
          frontend_tokens=n_front, steps=rows,
          peak_lr=peak_lr, tolerance=tol, worst_relative_to_scale=worst,
-         launches=counts, attention_bwd_by_source=by_source,
+         launches=counts, attention_fwd_by_source=attn_fwd_by_source,
+         attention_bwd_by_source=by_source,
          mlstm_bwd_by_source=mlstm_by_source,
          mlstm_fwd_by_source=mlstm_fwd_by_source,
          seconds=seconds, host_bytes_available_before=host_free)
@@ -2925,7 +2970,9 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
         "mlstm_chunkwise_bwd_tf32x3": mlstm_by_source.get(
             "mlstm_kernel_bwd_tf32x3.cu", 0),
         "mlstm_chunkwise_tf32x3": mlstm_fwd_by_source.get(
-            "mlstm_kernel_tf32x3.cu", 0)}
+            "mlstm_kernel_tf32x3.cu", 0),
+        "flash_attention_f32": attn_fwd_by_source.get(
+            "flash_attention.cu", 0)}
 
 
 def host_bytes_available() -> int:
@@ -3066,7 +3113,7 @@ def main(argv=None) -> int:
     phase_check_interval(torch, np, dev, axis, tick)
     campaign_main_launches = phase_campaign_main(torch, dev)
     campaign_launches = phase_campaign(torch, dev)
-    fa = phase_flash_attention(torch, np, dev)
+    fa, fa32 = phase_flash_attention(torch, np, dev)
     fb = phase_flash_attention_bwd(torch, np, dev)
     da = phase_decode_attention(torch, np, dev)
     rg = phase_rglru_scan(torch, np, dev)
@@ -3074,11 +3121,11 @@ def main(argv=None) -> int:
     ml = phase_mlstm_chunkwise(torch, np, dev)
     mlb = phase_mlstm_chunkwise_bwd(torch, np, dev)
     by_path = {"serve": phase_serve(torch, np, dev)}
-    phase_serve_parity(torch, np, dev)
+    by_path["serve_parity"] = phase_serve_parity(torch, np, dev)
     by_path["serve_rglru"] = phase_serve(torch, np, dev, SERVE_RGLRU,
                                          "serve_rglru", seed=8)
-    phase_serve_parity(torch, np, dev, SERVE_RGLRU[0], PARITY_RGLRU,
-                       "serve_parity_rglru")
+    by_path["serve_parity_rglru"] = phase_serve_parity(
+        torch, np, dev, SERVE_RGLRU[0], PARITY_RGLRU, "serve_parity_rglru")
     by_path["serve_xlstm"] = phase_serve(torch, np, dev, SERVE_XLSTM,
                                          "serve_xlstm", seed=9)
     by_path["serve_parity_xlstm"] = phase_serve_parity(
@@ -3090,8 +3137,8 @@ def main(argv=None) -> int:
             (SERVE_ENCDEC, PARITY_ENCDEC, "encdec", 12)):
         by_path[f"serve_{fam}"] = phase_serve(torch, np, dev, spec,
                                               f"serve_{fam}", seed=seed)
-        phase_serve_parity(torch, np, dev, spec[0], parity,
-                           f"serve_parity_{fam}")
+        by_path[f"serve_parity_{fam}"] = phase_serve_parity(
+            torch, np, dev, spec[0], parity, f"serve_parity_{fam}")
     by_path["train"] = phase_train(torch, np, dev)
     by_path["train_parity"] = phase_train_parity(torch, np, dev)
     parity = {fam: rest for fam, *rest in TRAIN_PARITY_FAMILIES}
@@ -3111,15 +3158,14 @@ def main(argv=None) -> int:
                   "decode_attention", "rglru_scan", "rglru_scan_bwd",
                   "mlstm_chunkwise", "mlstm_chunkwise_bwd"):
         paths[kname] = {p: c[kname] for p, c in by_path.items() if c[kname]}
-    # the mLSTM forward and each backward by source: the float32
-    # split-TF32 kernel's launches (the parity phases, each holding every
-    # one to that source) and the bf16 kernel's, the rest
-    for kname in BY_SOURCE:
-        key = f"{kname}_tf32x3"
-        tf32 = {p: c[key] for p, c in by_path.items() if c.get(key)}
-        paths[kname] = {p: n - tf32.get(p, 0)
-                        for p, n in paths[kname].items() if n > tf32.get(p, 0)}
-        paths[key] = tf32
+    # the attention and mLSTM kernels by source: the float32 source's
+    # launches (the parity phases, each holding every one to that source)
+    # and the bf16 source's, the rest (each phase holds those too)
+    for kname, key in BY_SOURCE.items():
+        f32 = {p: c[key] for p, c in by_path.items() if c.get(key)}
+        paths[kname] = {p: n - f32.get(p, 0)
+                        for p, n in paths[kname].items() if n > f32.get(p, 0)}
+        paths[key] = f32
     kernels = []
     for kname, row, src, tpu in (
             ("minskew", ms, "src/repro_torch/kernels/csrc/minskew.cu",
@@ -3129,6 +3175,9 @@ def main(argv=None) -> int:
             ("flash_attention", fa,
              "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:91"),
+            ("flash_attention_f32", fa32,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:91 in float32"),
             ("flash_attention_bwd", fb[0],
              "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
              "gradient of src/repro/kernels/flash_attention.py:91 (the JAX "

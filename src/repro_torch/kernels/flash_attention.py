@@ -58,7 +58,7 @@ tensor they launch a kernel or raise.  Both paths check dtypes and
 shapes first.  ``flash_attention_flat.launches`` counts the launches of
 either forward kernel from either entry point,
 ``flash_attention_bwd.launches`` the calls that launched either
-backward (``launches_by_source`` splits them).
+backward; ``launches_by_source`` on each splits them by source.
 """
 from __future__ import annotations
 
@@ -82,6 +82,8 @@ BWD_SM90_ROWS = 128           # the bf16 backward's lse/D scratch unit
 MAX_GRID_YZ = 65535
 ERR_ENCODE = 20000            # csrc/flash_attention_sm90*.cu: + a CUresult
 SM90_BWD_MAX_HD = 256         # csrc/flash_attention_bwd_sm90.cu
+FWD_SM90 = "flash_attention_sm90.cu"          # bf16
+FWD_F32 = "flash_attention.cu"                # float32
 BWD_SM90 = "flash_attention_bwd_sm90.cu"      # bf16
 BWD_TF32X3 = "flash_attention_bwd_tf32x3.cu"  # float32
 SM90_BWD_WIDE_HD = 128        # above it: 64-key blocks, heads split
@@ -332,7 +334,7 @@ def _launch_bf16(q, k, v, out, causal, window):
         what = (f"tensor map refused, CUresult {err - ERR_ENCODE}"
                 if err >= ERR_ENCODE else f"CUDA error {err}")
         raise RuntimeError(f"flash_attention kernel launch failed: {what}")
-    flash_attention_flat.launches += 1
+    _count_fwd(FWD_SM90)
     return out
 
 
@@ -352,11 +354,18 @@ def _launch_f32(q, k, v, causal, window):
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")
-    flash_attention_flat.launches += 1
+    _count_fwd(FWD_F32)
     return out
 
 
+def _count_fwd(source: str) -> None:
+    flash_attention_flat.launches += 1
+    by_source = flash_attention_flat.launches_by_source
+    by_source[source] = by_source.get(source, 0) + 1
+
+
 flash_attention_flat.launches = 0
+flash_attention_flat.launches_by_source = {}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -18,12 +18,14 @@ recurrence from the carry.  See the source note.
 
 The gradient, bound through :class:`RglruScan`, a
 ``torch.autograd.Function`` that saves log_a, h0 and the output h, is
-:func:`rglru_scan_bwd`: ``csrc/rglru_scan_bwd.cu``, the same chained
-scan run from the last chunk (``g_t = dh_t + a_{t+1} g_{t+1}``; db, dlog_a
-and dh0 from g and the saved h).  The JAX package differentiates its jnp
-scan; it has no backward Pallas kernel.  A call on CUDA tensors goes
-through it when grad mode is on and an input requires grad; otherwise
-(serving) nothing is saved.
+:func:`rglru_scan_bwd`: ``csrc/rglru_scan_bwd.cu``, a chained scan run
+from the last chunk (``g_t = dh_t + a_{t+1} g_{t+1}``; db, dlog_a and dh0
+from g and the saved h) whose blocks stage all three inputs (log_a, dh
+and the rows of h_{t-1}) before any wait and split a chunk of
+``BWD_CHUNK`` steps over ``BWD_WARPS`` warps (``plan_bwd``).  The JAX
+package differentiates its jnp scan; it has no backward Pallas kernel.
+A call on CUDA tensors goes through it when grad mode is on and an input
+requires grad; otherwise (serving) nothing is saved.
 
 On a CPU tensor the wrappers compute the plain versions
 (:func:`repro_torch.kernels.ref.rglru_plain`, through which autograd
@@ -47,6 +49,11 @@ from repro_torch.kernels.ref import rglru_bwd_plain, rglru_plain
 CHUNK = 256
 #: channels per block (W_t): one warp, a lane each
 TILE_W = 32
+#: the backward's time steps per chunk (hops of its carry chain) and warps
+#: per block (each a sub-chunk of ceil(rows / warps) steps): the
+#: ``CHUNK`` and ``WARPS`` that ``csrc/rglru_scan_bwd.cu`` is built for
+BWD_CHUNK = 256
+BWD_WARPS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,6 +93,15 @@ def plan(bsz: int, s: int, w: int) -> dict:
     n_chunks = -(-s // CHUNK)
     return {"chunk": CHUNK, "tile_w": TILE_W, "n_chunks": n_chunks,
             "grid": n_chunks * bsz * -(-w // TILE_W)}
+
+
+def plan_bwd(bsz: int, s: int, w: int) -> dict:
+    """The backward kernel's tiling of a (B, S, W) call: T_c, warps a
+    block, W_t, the chunks (hops of the carry chain) and the blocks of
+    the grid."""
+    n_chunks = -(-s // BWD_CHUNK)
+    return {"chunk": BWD_CHUNK, "warps": BWD_WARPS, "tile_w": TILE_W,
+            "n_chunks": n_chunks, "grid": n_chunks * bsz * -(-w // TILE_W)}
 
 
 def _check(log_a, h0, *others, what: str = "rglru_scan"):
@@ -197,7 +213,7 @@ def rglru_scan_bwd(log_a: torch.Tensor, h: torch.Tensor,
             dh0.zero_()
         return dla, db, dh0
     launch, ws_bytes = _lib_bwd()
-    n_ws = ws_bytes(bsz, s, w, CHUNK)
+    n_ws = ws_bytes(bsz, s, w, BWD_CHUNK)
     ws = torch.empty(n_ws, dtype=torch.uint8, device=log_a.device)
     with torch.cuda.device(log_a.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -205,7 +221,7 @@ def rglru_scan_bwd(log_a: torch.Tensor, h: torch.Tensor,
                      None if h0 is None else h0.data_ptr(), dh.data_ptr(),
                      dla.data_ptr(), db.data_ptr(),
                      None if dh0 is None else dh0.data_ptr(), ws.data_ptr(),
-                     n_ws, bsz, s, w, CHUNK, TILE_W, stream)
+                     n_ws, bsz, s, w, BWD_CHUNK, TILE_W, stream)
     if err != 0:
         raise RuntimeError(
             f"rglru_scan_bwd kernel launch failed: CUDA error {err}")

@@ -110,12 +110,19 @@ def test_mlstm_kernel_vs_plain(dev, dtype, bh, s, hd, carry):
     _close(n, nw)
 
 
-#: S = 1, S off the chunk of 256 with odd W, h0 given and not, and a
-#: chain of 16 chunks
+#: S = 1, S off the chunk of 256 with odd W, h0 given and not, a chain
+#: of 16 chunks, the 4-byte copies (W % 4 != 0) without h0, S one step
+#: either side of the chunk, train_parity_rglru's shape, and a long chain
+#: of 64 chunks (where the chain is the critical path)
 @pytest.mark.parametrize("b,s,w,with_h0", [(2, 1, 64, True),
                                            (2, 300, 32, False),
                                            (2, 515, 4099, True),
-                                           (1, 4096, 256, True)])
+                                           (1, 4096, 256, True),
+                                           (1, 300, 37, False),
+                                           (2, 255, 64, True),
+                                           (2, 257, 64, False),
+                                           (2, 128, 4096, False),
+                                           (1, 16384, 1024, True)])
 def test_rglru_bwd_kernel_vs_plain(dev, b, s, w, with_h0):
     """``csrc/rglru_scan_bwd.cu`` against ``ref.rglru_bwd_plain``; a
     second call gives the same bits."""
