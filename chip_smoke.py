@@ -58,12 +58,18 @@ One JSON line per phase:
    at seamless_m4t_medium's three (B=4, 16/16 heads, hd 64: the encoder's
    256 frames, non-causal; the cross-attention's 1,024 queries against
    256 frames; the decoder's 1,024 causal), float32 alone at the train
-   parity phases' shape (B=2, S=128, 32/8 heads, hd 128, causal: the
-   shape where the float32 kernel runs on a path); untimed at olmoe_1b_7b's
+   parity phases' shape (B=2, S=128, 32/8 heads, hd 128, causal) and at
+   serve_parity_rglru's prefill (B=2, S=2,080, 16/1 heads, hd 256,
+   window 2,048): the shapes where the float32 kernel runs on a path;
+   untimed at olmoe_1b_7b's
    prefill (16/16 heads, hd 128), at hd 8, 24 and 40, one query row,
    Sq < Sk under the causal mask and a window narrower than a key tile,
    and through ``ops.flash_attention`` on non-contiguous (B, S, H, hd)
-   views;
+   views; each case with the source that ran
+   (``csrc/flash_attention_sm90.cu`` for bfloat16,
+   ``csrc/flash_attention_tf32x3.cu``, split TF32, for float32), two
+   float32 calls bit-equal, a float32 row's bound at the TF32 peak times
+   three, the CUDA-core bound beside it;
 11b. flash_attention_bwd — the attention backward kernels vs their plain
    version (``attention_flat_bwd_plain``): bfloat16 on the tensor cores
    (``csrc/flash_attention_bwd_sm90.cu``; above hd 128 its columns and
@@ -1018,10 +1024,10 @@ def phase_check_interval(torch, np, dev, axis, tick: int,
 # ------------------------------------------------------- serving kernels
 
 
-#: the device kernels of one wrapper call: bf16 flash runs the tensor-core
-#: kernel, fp32 flash the CUDA-core one (one launch either way); decode
+#: the device kernels of one wrapper call: bf16 flash runs the wgmma
+#: kernel, fp32 flash the split-TF32 one (one launch either way); decode
 #: runs the split kernel and the combine kernel
-FLASH_KERNELS = ("flash_sm90_kernel", "flash_kernel")
+FLASH_KERNELS = ("flash_sm90_kernel", "flash_fwd_tf32x3")
 #: the attention backward: the bf16 tensor-core kernels (above hd 128
 #: with the query heads split, a third, the reduction of the parts), the
 #: float32 split-TF32 ones (the same three roles), and the first design's
@@ -1041,7 +1047,8 @@ DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 #: kernel pads them to 64 in shared memory), one query row, fewer queries
 #: than keys under the causal mask, and a window narrower than a key tile;
 #: ``timed`` may name the one dtype a case is timed in ("float32": the
-#: train parity phases' shape, where only the float32 kernel is on a path)
+#: train parity phases' shape and serve_parity_rglru's prefill, where only
+#: the float32 kernel is on a path)
 FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                ("s4096", 4, 32, 8, 4096, 4096, 128, True, 0, True),
                ("rglru_prefill", 4, 16, 1, 3072, 3072, 256, True, 2048,
@@ -1051,6 +1058,8 @@ FLASH_CASES = [("main", 4, 32, 8, 1024, 1024, 128, True, 0, True),
                ("encdec_self", 4, 16, 16, 1024, 1024, 64, True, 0, True),
                ("moe_prefill", 4, 16, 16, 1024, 1024, 128, True, 0, False),
                ("parity", 2, 32, 8, 128, 128, 128, True, 0, "float32"),
+               ("rglru_parity", 2, 16, 1, 2080, 2080, 256, True, 2048,
+                "float32"),
                ("gqa", 1, 4, 2, 128, 128, 64, True, 0, False),
                ("padded", 1, 8, 2, 96, 96, 32, True, 0, False),
                ("window64", 1, 2, 1, 256, 256, 64, True, 64, False),
@@ -1227,7 +1236,7 @@ TRAIN_RECURRENT = (("rglru", ("recurrentgemma_9b", 4, 1024, 1, 2, 9)),
 #: the train step's device operations by class, from their kernel names
 #: (the first class whose key a name contains; the rest are "other")
 TRAIN_OP_CLASSES = (("attention_bwd", ("flash_bwd",)),
-                    ("attention_fwd", ("flash_sm90", "flash_kernel")),
+                    ("attention_fwd", ("flash_sm90", "flash_fwd")),
                     ("recurrence_bwd", ("rglru_bwd", "mlstm_bwd")),
                     ("recurrence_fwd", ("rglru_chained", "mlstm_scores",
                                         "mlstm_den", "mlstm_carry",
@@ -1327,12 +1336,17 @@ def _library(torch, lib, iters: int = ITERS) -> dict:
 
 
 def phase_flash_attention(torch, np, dev):
-    """Kernel vs plain version (``attention_flat_plain``) on the card;
-    times at the serving shapes beside ``scaled_dot_product_attention``
-    (timed here only: the port never calls it; a window becomes a
-    boolean band mask, since SDPA has no window argument)."""
+    """Kernel vs plain version (``attention_flat_plain``) on the card, the
+    source each case ran held to ``fwd_source``'s, two float32 calls
+    bit-equal; times at the serving shapes beside
+    ``scaled_dot_product_attention`` (timed here only: the port never
+    calls it; a window becomes a boolean band mask, since SDPA has no
+    window argument).  A float32 row's bound is at 3 x operations over
+    the dense TF32 peak (the split's three products),
+    ``fp32_cuda_core_bound_ms`` beside it."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_flat
+    from repro_torch.kernels.flash_attention import (flash_attention_flat,
+                                                     fwd_source)
     from repro_torch.kernels.ref import attention_flat_plain
     g = torch.Generator(device=dev).manual_seed(2)
     main = []
@@ -1344,15 +1358,28 @@ def phase_flash_attention(torch, np, dev):
             q = torch.randn(b * h, sq, hd, generator=g, device=dev).to(dt)
             k = torch.randn(b * hkv, sk, hd, generator=g, device=dev).to(dt)
             v = torch.randn(b * hkv, sk, hd, generator=g, device=dev).to(dt)
+            source = fwd_source(dt, hd)
+            before = flash_attention_flat.launches_by_source.get(source, 0)
             got = flash_attention_flat(q, k, v, causal=causal, window=window)
+            if flash_attention_flat.launches_by_source.get(
+                    source, 0) != before + 1:
+                raise AssertionError(f"flash_attention: {name} ({dname}) did "
+                                     f"not run {source}")
             want = attention_flat_plain(q, k, v, causal=causal,
                                         window=window)
+            bit_equal = None
+            if dt == torch.float32:         # no atomics: the same bits
+                bit_equal = bool(torch.equal(got, flash_attention_flat(
+                    q, k, v, causal=causal, window=window)))
+                if not bit_equal:
+                    raise AssertionError(f"flash_attention: {name} "
+                                         f"(float32): two calls differ")
             torch.cuda.synchronize()
             err = _err(got, want)
             _hold("flash_attention", err, dname, name)
             if timed is not True and timed != dname:
-                edge.append({"case": name, "dtype": dname,
-                             "max_abs_err": err})
+                edge.append({"case": name, "dtype": dname, "source": source,
+                             "max_abs_err": err, "bit_equal": bit_equal})
                 continue
             del got, want
             iters = ITERS if sq <= 1024 else 10
@@ -1371,14 +1398,20 @@ def phase_flash_attention(torch, np, dev):
             elt = q.element_size()
             n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
             flops = 4 * hd * b * h * visible_pairs(sq, sk, causal, window)
-            bound, by = attn_bound_ms(n_bytes, flops, dname)
+            # float32: three TF32 products for each float32 one
+            bound, by = (attn_bound_ms(n_bytes, 3 * flops, "tf32")
+                         if dt == torch.float32 else
+                         attn_bound_ms(n_bytes, flops, dname))
             main.append({
-                "case": name, "dtype": dname, "B": b, "H": h, "Hkv": hkv,
-                "S": sq, "hd": hd, "max_abs_err": err,
+                "case": name, "dtype": dname, "source": source, "B": b,
+                "H": h, "Hkv": hkv, "S": sq, "hd": hd, "max_abs_err": err,
+                "bit_equal": bit_equal,
                 **_timings(torch, kern, plain, FLASH_KERNELS, iters),
                 **_library(torch, lib, iters),
                 "bound_ms": bound, "bound_by": by, "flops": flops,
-                "bytes": n_bytes})
+                "bytes": n_bytes,
+                **({"fp32_cuda_core_bound_ms": flops / PEAK_FLOPS["float32"]
+                    * 1e3} if dt == torch.float32 else {})})
             if name == "main":              # what the serving path calls
                 bshd = [t.view(b, -1, t.shape[1], hd).transpose(1, 2)
                         .contiguous() for t in (q, k, v)]
@@ -2030,7 +2063,7 @@ def _kernel_counts():
 #: kernels line's entry for the launches of its float32 source (the
 #: parity phases' calls; each phase holds every call to the source its
 #: dtype picks)
-BY_SOURCE = {"flash_attention": "flash_attention_f32",
+BY_SOURCE = {"flash_attention": "flash_attention_tf32x3",
              "flash_attention_bwd": "flash_attention_bwd_tf32x3",
              "mlstm_chunkwise": "mlstm_chunkwise_tf32x3",
              "mlstm_chunkwise_bwd": "mlstm_chunkwise_bwd_tf32x3"}
@@ -2115,12 +2148,13 @@ def expected_train_launches(cfg, n_steps: int) -> dict:
 
 def expected_fwd_sources(torch, cfg, n: int) -> dict:
     """The flash forward's launches by source that ``n`` of them at
-    ``cfg`` must give: all on ``csrc/flash_attention.cu`` in float32, on
-    the bf16 tensor-core kernel otherwise; none without attention."""
+    ``cfg`` must give: all on ``csrc/flash_attention_tf32x3.cu`` in
+    float32, on the bf16 tensor-core kernel otherwise; none without
+    attention."""
     if not n:
         return {}
-    from repro_torch.kernels.flash_attention import FWD_F32, FWD_SM90
-    return {FWD_F32 if cfg.dtype == torch.float32 else FWD_SM90: n}
+    from repro_torch.kernels.flash_attention import FWD_SM90, FWD_TF32X3
+    return {FWD_TF32X3 if cfg.dtype == torch.float32 else FWD_SM90: n}
 
 
 def _hold_fwd_sources(torch, cfg, counts: dict, phase: str) -> dict:
@@ -2452,7 +2486,8 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
     torch.cuda.empty_cache()
     return {**counts, "mlstm_chunkwise_tf32x3": fwd_sources.get(
         "mlstm_kernel_tf32x3.cu", 0),
-        "flash_attention_f32": attn_sources.get("flash_attention.cu", 0)}
+        "flash_attention_tf32x3": attn_sources.get(
+            "flash_attention_tf32x3.cu", 0)}
 
 
 def replayed(report) -> dict:
@@ -2971,8 +3006,8 @@ def phase_train_parity(torch, np, dev, spec=TRAIN_PARITY,
             "mlstm_kernel_bwd_tf32x3.cu", 0),
         "mlstm_chunkwise_tf32x3": mlstm_fwd_by_source.get(
             "mlstm_kernel_tf32x3.cu", 0),
-        "flash_attention_f32": attn_fwd_by_source.get(
-            "flash_attention.cu", 0)}
+        "flash_attention_tf32x3": attn_fwd_by_source.get(
+            "flash_attention_tf32x3.cu", 0)}
 
 
 def host_bytes_available() -> int:
@@ -3175,8 +3210,8 @@ def main(argv=None) -> int:
             ("flash_attention", fa,
              "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:91"),
-            ("flash_attention_f32", fa32,
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
+            ("flash_attention_tf32x3", fa32,
+             "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
              "src/repro/kernels/flash_attention.py:91 in float32"),
             ("flash_attention_bwd", fb[0],
              "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",

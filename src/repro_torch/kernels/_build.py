@@ -31,7 +31,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("minskew", "hub_route", "flash_attention", "flash_attention_sm90",
            "flash_attention_bwd", "flash_attention_bwd_sm90",
-           "flash_attention_bwd_tf32x3",
+           "flash_attention_bwd_tf32x3", "flash_attention_tf32x3",
            "decode_attention", "rglru_scan", "rglru_scan_bwd", "mlstm_kernel",
            "mlstm_kernel_sm90", "mlstm_kernel_tf32x3", "mlstm_kernel_bwd",
            "mlstm_kernel_bwd_sm90",

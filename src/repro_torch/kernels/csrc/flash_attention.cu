@@ -1,5 +1,9 @@
 // Blockwise (flash) attention for Hopper (sm_90a) in float32 on the CUDA
-// cores; bfloat16 runs on the tensor cores in flash_attention_sm90.cu.
+// cores: the float32 forward's first design, on no route.  float32 calls
+// run the split-TF32 tensor-core kernel of flash_attention_tf32x3.cu, and
+// bfloat16 the wgmma kernel of flash_attention_sm90.cu;
+// repro_torch.kernels.flash_attention._fwd_cuda_cores launches this one for
+// tools/flash_fwd_check.py, which times it beside the route.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_kernel, wrapper flash_attention_flat) for float32 inputs.  For q (BH,
@@ -37,10 +41,11 @@
 // is bound by operations.  This first kernel does those operations as
 // float32 FMAs on the CUDA cores, fed from shared memory (about 4 loads
 // per 16 FMAs in the score loop), so it is bound by shared-memory issue
-// and the float32 rate, far from the tensor-core bound.  Tensor cores
-// would round the inputs to TF32, which the float32 parity runs cannot
-// take.  The (B, S, H, hd) -> (BH, S, hd) transposes around it are copies
-// made by the caller (repro_torch.kernels.flash_attention_bshd).
+// and the float32 rate, far from the tensor-core bound.  A single TF32
+// pass on the tensor cores would round the inputs to TF32, which the
+// float32 parity runs cannot take; flash_attention_tf32x3.cu keeps float32
+// accuracy with three TF32 products of split operands.  It takes
+// contiguous flat (BH, S, hd) tensors only.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -1,8 +1,8 @@
 // Blockwise (flash) attention in bfloat16 on Hopper's tensor cores (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (_kernel, wrapper flash_attention_flat) for bf16 inputs; the float32 path
-// stays on the CUDA-core kernel of flash_attention.cu.  q (B, Sq, H, hd),
+// (_kernel, wrapper flash_attention_flat) for bf16 inputs; float32 runs the
+// split-TF32 kernel of flash_attention_tf32x3.cu.  q (B, Sq, H, hd),
 // k and v (B, Sk, Hkv, hd), out (B, Sq, H, hd), each read and written in
 // place through its strides (innermost stride 1, the others multiples of 8
 // elements, bases 16-byte aligned), so neither the (B, S, H, hd) layout of

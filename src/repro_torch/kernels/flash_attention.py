@@ -7,18 +7,26 @@ outside the band skipped, float32 sums and output in q's dtype.  Prefill
 runs it once per layer.
 
 Bound on the H100: operations (about 4 hd FLOPs per visible (query, key)
-pair and head).  Two kernels, split by dtype:
+pair and head).  Two kernels, chosen by dtype alone at every head dim the
+wrapper takes (:func:`fwd_source`).  Both read q, k, v and write the output
+in place through their strides, so the (B, S, H, hd) entry point
+:func:`flash_attention_bshd` makes no transposing copy and the flat (BH, S,
+hd) one passes its tensors as (1, S, BH, hd) views:
 
 - bfloat16: ``csrc/flash_attention_sm90.cu``, both products on the tensor
   cores (``wgmma``) with the online softmax on the accumulator in
-  registers; it reads q, k, v and writes the output in place through their
-  strides, so the (B, S, H, hd) entry point :func:`flash_attention_bshd`
-  makes no transposing copy and the flat (BH, S, hd) one passes its
-  tensors as (1, S, BH, hd) views;
-- float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores over
-  contiguous flat (BH, S, hd) tensors (the (B, S, H, hd) entry point
-  transposes for it), which keeps the float32 arithmetic of the parity
-  runs (tensor-core TF32 would change it).
+  registers;
+- float32: ``csrc/flash_attention_tf32x3.cu``, both products on the tensor
+  cores as three TF32 ``mma.sync`` of split operands (hi = x rounded to
+  tf32, lo = x - hi: lo hi, hi lo, hi hi), which keeps float32 accuracy for
+  the parity runs; tiles staged by ``cp.async`` in a two-slot ring, P kept
+  in registers, each key tile's P V summed from zero and joined to the
+  output by one rounded ``fmaf``.
+
+``csrc/flash_attention.cu`` (float32 FMAs on the CUDA cores over contiguous
+flat tensors) is the float32 forward's first design and on no route:
+:func:`_fwd_cuda_cores` launches it for ``tools/flash_fwd_check.py``, which
+times it beside the route.
 
 The gradient, bound through :class:`FlashAttention`, a
 ``torch.autograd.Function`` whose backward calls
@@ -77,13 +85,14 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HD = 256
-BQ = 64                       # query rows per block (both kernels)
+BQ = 64                       # query rows per block (the float32 kernels)
 BWD_SM90_ROWS = 128           # the bf16 backward's lse/D scratch unit
 MAX_GRID_YZ = 65535
 ERR_ENCODE = 20000            # csrc/flash_attention_sm90*.cu: + a CUresult
 SM90_BWD_MAX_HD = 256         # csrc/flash_attention_bwd_sm90.cu
 FWD_SM90 = "flash_attention_sm90.cu"          # bf16
-FWD_F32 = "flash_attention.cu"                # float32
+FWD_TF32X3 = "flash_attention_tf32x3.cu"      # float32
+FWD_CUDA_CORES = "flash_attention.cu"         # first design, on no route
 BWD_SM90 = "flash_attention_bwd_sm90.cu"      # bf16
 BWD_TF32X3 = "flash_attention_bwd_tf32x3.cu"  # float32
 SM90_BWD_WIDE_HD = 128        # above it: 64-key blocks, heads split
@@ -91,10 +100,27 @@ SM90_BWD_WIDE_KEYS = 64       # keys a dk/dv block owns above that
 
 
 @functools.lru_cache(maxsize=None)
-def _lib_f32():
-    """The float32 launcher, set up once."""
+def _lib_cuda_cores():
+    """The first design's launcher (float32, CUDA cores), set up once."""
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   ctypes.c_double, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_tf32x3():
+    """The float32 tensor-core launcher, set up once; checks that the
+    source's query rows a block are the wrapper's grid unit."""
+    lib = _build.load("flash_attention_tf32x3")
+    lib.flash_attention_tf32x3_rows.restype = _I
+    rows = lib.flash_attention_tf32x3_rows()
+    if rows != BQ:
+        raise RuntimeError(f"csrc/flash_attention_tf32x3.cu has {rows}-row "
+                           f"blocks, the wrapper expects {BQ}")
+    fn = lib.flash_attention_tf32x3_launch
+    fn.argtypes = [_P, _P, _P, _P, *([_L] * 12), *([_I] * 8),
                    ctypes.c_double, _P]
     fn.restype = _I
     return fn
@@ -154,6 +180,18 @@ def _lib_bwd_tf32x3():
                    ctypes.c_double, _P]
     fn.restype = _I
     return fn
+
+
+def fwd_source(dtype: torch.dtype, hd: int) -> str | None:
+    """The source a CUDA call of :func:`flash_attention_flat` or
+    :func:`flash_attention_bshd` at this dtype and head dim runs:
+    ``flash_attention_sm90.cu`` for bf16, ``flash_attention_tf32x3.cu``
+    for float32, at every head dim the wrapper takes (a multiple of 8 up
+    to 256); None for a pair no kernel takes (the wrapper's checks refuse
+    it first)."""
+    if hd % 8 != 0 or not 8 <= hd <= MAX_HD:
+        return None
+    return {torch.bfloat16: FWD_SM90, torch.float32: FWD_TF32X3}.get(dtype)
 
 
 def bwd_source(dtype: torch.dtype, hd: int) -> str | None:
@@ -244,14 +282,12 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash_attention_flat has no gradient on the card; call the "
             "(B, S, H, hd) entry point (ops.flash_attention), whose "
             "backward is flash_attention_bwd")
-    if q.dtype == torch.float32:
-        return _launch_f32(q, k, v, causal, window)
     out = torch.empty_like(q)
 
     def rows(t):                        # (BH, S, hd) as (1, S, BH, hd)
         return _aligned(t.transpose(0, 1).unsqueeze(0))
-    _launch_bf16(rows(q), rows(k), rows(v), out.transpose(0, 1).unsqueeze(0),
-                 causal, window)
+    _launch(rows(q), rows(k), rows(v), out.transpose(0, 1).unsqueeze(0),
+            causal, window)
     return out
 
 
@@ -261,12 +297,12 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Sq, H, hd); k/v (B, Sk, Hkv, hd), H % Hkv == 0 -> (B, Sq, H,
     hd) in q's dtype; query head h reads kv head h // (H / Hkv).
 
-    bfloat16 on the card reads the tensors in place through their
-    strides.  The kernel copies 16 bytes at a time, so a tensor whose
-    innermost stride is not 1, whose other strides are not multiples of 8
-    elements or whose base is not 16-byte aligned is first copied to a
-    contiguous one (a (B, S, H, hd) view of a projection's output needs
-    none).  float32 on the card, and the CPU's plain version, take flat
+    On the card both kernels read the tensors in place through their
+    strides and write the output directly.  They copy 16 bytes at a time,
+    so a tensor whose innermost stride is not 1, whose other strides are
+    not multiples of 16 bytes or whose base is not 16-byte aligned is
+    first copied to a contiguous one (a (B, S, H, hd) view of a
+    projection's output needs none).  The CPU's plain version takes flat
     (B*H, S, hd) copies.
 
     Under grad with an input that requires it, the call goes through
@@ -274,11 +310,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_bshd(q, k, v)
     if _build.grad_wanted(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window)
-    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
-        b, s, h, hd = q.shape
-        out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
-        _launch_bf16(_aligned(q), _aligned(k), _aligned(v), out, causal,
-                     window)
+    if q.device.type != "cpu":
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _launch(_aligned(q), _aligned(k), _aligned(v), out, causal, window)
         return out
     b, s, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -338,23 +372,63 @@ def _launch_bf16(q, k, v, out, causal, window):
     return out
 
 
-def _launch_f32(q, k, v, causal, window):
+def _launch_tf32x3(q, k, v, out, causal, window):
+    """``csrc/flash_attention_tf32x3.cu`` on (B, S, H, hd) views of
+    aligned float32 tensors, the output written through its strides."""
+    _on_cuda(q)
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if -(-sq // BQ) > MAX_GRID_YZ or b * h > 2 ** 31 - 1:
+        raise ValueError(f"flash_attention: B={b}, H={h}, Sq={sq} exceed "
+                         f"the launch grid")
+    if sq == 0 or b == 0:
+        return out
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    launch = _lib_tf32x3()              # built at first use, or raises
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), *strides, b, h, hkv, sq, sk, hd,
+                     int(causal), int(window), 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"(flash_attention_tf32x3.cu): CUDA error {err}")
+    _count_fwd(FWD_TF32X3)
+    return out
+
+
+def _launch(q, k, v, out, causal, window):
+    """The kernel of the source :func:`fwd_source` names, on (B, S, H, hd)
+    views (the checks have refused every dtype and head dim it does not
+    name)."""
+    launch = {FWD_SM90: _launch_bf16, FWD_TF32X3: _launch_tf32x3}[
+        fwd_source(q.dtype, q.shape[-1])]
+    return launch(q, k, v, out, causal, window)
+
+
+def _fwd_cuda_cores(q, k, v, causal, window) -> torch.Tensor:
+    """``csrc/flash_attention.cu``, the float32 forward's first design, on
+    contiguous flat (BH, S, hd) float32 tensors; on no route of the
+    wrappers and not counted: ``tools/flash_fwd_check.py`` times it."""
+    _check(q, k, v)
+    _on_cuda(q)
     bh, sq, hd = q.shape
     bhkv, sk, _ = k.shape
-    if -(-sq // BQ) > MAX_GRID_YZ:
-        raise ValueError(f"flash_attention: Sq={sq} exceeds the launch grid")
+    if q.dtype != torch.float32 or -(-sq // BQ) > MAX_GRID_YZ:
+        raise ValueError("flash_attention.cu takes float32, Sq within the "
+                         "launch grid")
     out = torch.empty_like(q)
     if sq == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib_f32()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), bh, bhkv, sq, sk, hd, int(causal),
-                         int(window), 1.0 / math.sqrt(hd), stream)
+        err = _lib_cuda_cores()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), bh, bhkv, sq, sk, hd,
+                                int(causal), int(window), 1.0 / math.sqrt(hd),
+                                stream)
     if err != 0:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: CUDA error {err}")
-    _count_fwd(FWD_F32)
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"(flash_attention.cu): CUDA error {err}")
     return out
 
 

@@ -331,25 +331,36 @@ FLASH_EDGE = [(2, 4, 2, 100, 100, 8, True, 0),
 @pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal,window", FLASH_EDGE)
 def test_flash_kernel_vs_plain(dev, dtype, b, h, hkv, sq, sk, hd, causal,
                                window):
-    from repro_torch.kernels.flash_attention import flash_attention_flat
+    from repro_torch.kernels.flash_attention import (flash_attention_flat,
+                                                     fwd_source)
     from repro_torch.kernels.ref import attention_flat_plain
     g = torch.Generator(device=dev).manual_seed(3)
     q = torch.randn(b * h, sq, hd, generator=g, device=dev).to(dtype)
     k, v = (torch.randn(b * hkv, sk, hd, generator=g, device=dev).to(dtype)
             for _ in range(2))
     before = flash_attention_flat.launches
+    by_source = dict(flash_attention_flat.launches_by_source)
+    source = fwd_source(dtype, hd)
     got = flash_attention_flat(q, k, v, causal=causal, window=window)
     assert flash_attention_flat.launches == before + 1
+    assert (flash_attention_flat.launches_by_source[source]
+            == by_source.get(source, 0) + 1)
     _close(got, attention_flat_plain(q, k, v, causal=causal, window=window),
            dtype)
+    if dtype == torch.float32:          # no atomics: the same bits again
+        assert torch.equal(got, flash_attention_flat(q, k, v, causal=causal,
+                                                     window=window))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["fused", "heads_first"])
 def test_flash_strided_views_vs_plain(dev, dtype, kind):
-    """``ops.flash_attention`` on non-contiguous (B, S, H, hd) views (bf16
-    reads them in place) against the plain version of contiguous copies."""
+    """``ops.flash_attention`` on non-contiguous (B, S, H, hd) views (both
+    dtypes' kernels read them in place) against the plain version of
+    contiguous copies."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_flat,
+                                                     fwd_source)
     from repro_torch.kernels.ref import attention_flat_plain
     g = torch.Generator(device=dev).manual_seed(4)
     b, s, h, hkv, hd = 2, 150, 8, 2, 64
@@ -361,11 +372,17 @@ def test_flash_strided_views_vs_plain(dev, dtype, kind):
         q, k, v = (t.transpose(1, 2) for t in (x[:, :h], x[:, h:h + hkv],
                                                x[:, h + hkv:]))
     q, k, v = (t.to(dtype) for t in (q, k, v))
+    source = fwd_source(dtype, hd)
+    before = flash_attention_flat.launches_by_source.get(source, 0)
     got = ops.flash_attention(q, k, v, causal=True, window=40)
+    assert flash_attention_flat.launches_by_source[source] == before + 1
     want = attention_flat_plain(
         *(t.transpose(1, 2).reshape(-1, s, hd).contiguous()
           for t in (q, k, v)), causal=True, window=40)
     _close(got, want.view(b, h, s, hd).transpose(1, 2), dtype)
+    if dtype == torch.float32:          # no atomics: the same bits again
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=True,
+                                                    window=40))
 
 
 # (B, H, Hkv, Sq, Sk, hd, causal, window): the trainer's full-width shape

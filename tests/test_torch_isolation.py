@@ -51,7 +51,7 @@ def test_port_files_exist():
     for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",
                 "decode_attention.cu", "rglru_scan.cu", "mlstm_kernel.cu",
                 "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
-                "flash_attention_bwd_tf32x3.cu",
+                "flash_attention_bwd_tf32x3.cu", "flash_attention_tf32x3.cu",
                 "rglru_scan_bwd.cu", "mlstm_kernel_bwd.cu",
                 "mlstm_kernel_bwd_sm90.cu", "mlstm_kernel_bwd_tf32x3.cu",
                 "mlstm_kernel_sm90.cu", "mlstm_kernel_tf32x3.cu"):
