@@ -151,7 +151,14 @@ One JSON line per phase:
    after; then one profiled ``generate`` and 8 profiled decode steps;
 16. serve_parity — the same entry point at full width, 2 layers,
    float32: the card's logits and greedy tokens against the CPU run of
-   the same parameters (the plain versions);
+   the same parameters (the plain versions); then, on the same
+   parameters and prompts, two mesh cases on logical meshes, each a line
+   and a path of its own: serve_parity_tp_attention (``tp_attention`` on
+   (1, 3): 32 heads padded to 33, flash as MHA; the card's forward
+   logits against the card's without the option within 1e-4 and the
+   CPU's within 1e-3, and whether card and card are bit-equal) and
+   serve_parity_sp_decode (``sp_decode`` on (1, 2): card against CPU,
+   whose decode attention is the sharded formula); launches exact;
 17. serve_rglru, serve_xlstm — the same serving phase on full-width,
    full-depth recurrentgemma_9b (4 prompts of 3,072 tokens, past the
    2,048 window) and xlstm_1_3b (4 prompts of 1,024 tokens), 32 new
@@ -175,7 +182,11 @@ One JSON line per phase:
    against CPU at full width, float32, 2 layers (seamless: 2 encoder and
    2 decoder layers), 2 prompts of 128 tokens with their frontend
    embeddings, 8 new; the MoE's dropped-slot mask of the first layer's
-   prefill equal on both sides and non-empty;
+   prefill equal on both sides and non-empty; then
+   serve_parity_moe_expert_parallel: olmoe on a logical (2, 2) mesh, four
+   shards of 64 prompt tokens each routed at capacity 10, every shard's
+   first-layer mask equal on both sides, the drops beside the one-shard
+   run's; launches exact;
 20. train — the training path: ``Trainer`` on full-width, full-depth
    qwen3_4b in bfloat16 (remat, AdamW, global batch 4 of 1,024 tokens),
    one warm-up step and four timed ones, each with the kernel counters
@@ -1128,6 +1139,14 @@ PARITY_XLSTM = (2, 2, 200, 8, {"slstm_every": 2})
 PARITY_MOE = (2, 2, 128, 8, {})
 PARITY_VLM = (2, 2, 128, 8, {})
 PARITY_ENCDEC = (2, 2, 128, 8, {"n_enc_layers": 2})
+#: the mesh cases of the parity phases: (logical mesh shape, the config
+#: option set or ``None``) by case; serve_parity runs "tp_attention"
+#: (:func:`parity_tp_attention`: 32 heads padded to 33) and "sp_decode",
+#: serve_parity_moe "expert_parallel" (a MoE under any mesh; 4 shards of
+#: 64 prompt tokens: capacity 10 against a mean load of 8)
+PARITY_MESH_CASES = {"tp_attention": ((1, 3), "tp_attention"),
+                     "sp_decode": ((1, 2), "sp_decode"),
+                     "expert_parallel": ((2, 2), None)}
 #: (B, S, W, with h0, timed): recurrentgemma's prefill shape, a long
 #: chain (64 chunks at the kernel's T_c of 256; "kernel": the plain loop
 #: over its 16,384 steps is timed once, not profiled), tests/test_kernels.py's
@@ -2379,61 +2398,42 @@ def slstm_share(torch, srv, params, prompts) -> dict:
             "share": sum(spent) / total}
 
 
-def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
-                       spec=PARITY, phase: str = "serve_parity"):
-    """Full width, cut depth, float32: the card (kernels) against the
-    CPU (plain versions) on the same parameters and frontend embeddings.
-    ``spec`` is (layers, batch, prompt length, new tokens, config
-    overrides).  A MoE's first layer must drop the same slots on both
-    sides in prefill, and some."""
-    import dataclasses
+#: the parity phases' float32 logit bound, x max(1, logit scale): sums of
+#: 2,560-24,576 terms in other orders (cuBLAS vs the CPU BLAS, kernels vs
+#: plain versions) differ by about 1e-5 of the logits
+PARITY_TOL = 1e-3
+#: ``tp_attention``'s card forward against the card forward without it,
+#: x max(1, scale): the JAX package's own bound for the option
+TP_TOL = 1e-4
 
-    from repro_torch import configs
-    from repro_torch.models import registry
+
+def parity_steps(torch, np, dev, cfg, gpu, cpu, prompts, fe, new,
+                 phase: str):
+    """Card (kernels) against CPU (plain versions) on the same parameters
+    and frontend embeddings: the logits of prefill and of every decode
+    step within ``PARITY_TOL``, both sides fed the card's greedy tokens
+    (a token may differ only where the CPU's top two are closer than
+    the bound), then one ``generate`` a side, its tokens, ``decode_steps``
+    and ``tokens_out`` equal.  Returns (max abs errors by step, token
+    gaps where they differ, tokens equal, the card's stats, the first MoE
+    layer's (capacity, kept mask) on the card and on the CPU, or
+    ``None``); the card launches ``expected_launches(cfg, new - 1)`` and
+    then ``expected_launches(cfg, stats.decode_steps)``."""
     from repro_torch.serve.loop import BatchServer
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    tol = 1e-3            # float32 sums of 2,560-24,576 terms in other
-    #                       orders (cuBLAS vs the CPU BLAS, kernels vs
-    #                       plain versions): about 1e-5 of the logits
-    n_layers, batch, prompt_len, new, overrides = spec
-    cfg = dataclasses.replace(configs.get(arch), n_layers=n_layers,
-                              dtype=torch.float32, **overrides)
-    torch.cuda.empty_cache()
-    gpu = registry.init(cfg, torch.Generator(device=dev).manual_seed(1),
-                        device=dev)
-
-    def to_cpu(tree):
-        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
-                for k, v in tree.items()}
-    cpu = to_cpu(gpu)
-    prompts = serve_prompts(np, cfg.vocab, batch, prompt_len, seed=5)
-    fe = frontend_embeds(np, cfg, batch, prompt_len, seed=6)
     fe_c, fe_h = ((None, None) if fe is None
                   else (torch.from_numpy(fe).to(dev), torch.from_numpy(fe)))
     card = BatchServer(cfg, gpu, max_new_tokens=new, device=dev)
     host = BatchServer(cfg, cpu, max_new_tokens=new, device="cpu")
-    _zero_kernel_counts()
-    # logits of prefill and of every decode step, both fed the card's
-    # greedy tokens
     ((lc, cc), (lh, ch)), kept = moe_keeps(lambda: (
         card._prefill(gpu, torch.from_numpy(prompts).to(dev), fe_c),
         host._prefill(cpu, torch.from_numpy(prompts), fe_h)))
-    drops = None
-    if cfg.n_experts:
-        first_c, first_h = kept[0][1], kept[cfg.n_layers][1]
-        drops = int((~first_h).sum())
-        if not torch.equal(first_c, first_h) or drops == 0:
-            raise AssertionError(f"{phase}: first layer's dropped slots "
-                                 f"{int((~first_c).sum())} on the card, "
-                                 f"{drops} on the CPU (must be equal, "
-                                 f"non-empty)")
+    first = (kept[0], kept[cfg.n_layers]) if cfg.n_experts else None
     errs, gaps = [], []
     for step in range(new):
         lc_h = lc.cpu()
         errs.append(float((lc_h - lh).abs().max()))
         scale = float(lh.abs().max())
-        if not errs[-1] <= tol * max(1.0, scale):
+        if not errs[-1] <= PARITY_TOL * max(1.0, scale):
             raise AssertionError(f"{phase} step {step}: max abs err "
                                  f"{errs[-1]} (logit scale {scale})")
         tc, th = lc_h.argmax(-1), lh.argmax(-1)
@@ -2441,7 +2441,7 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
             top2 = lh[lane].topk(2).values
             gap = float(top2[0] - top2[1])
             gaps.append({"step": step, "lane": int(lane), "gap": gap})
-            if gap >= tol * max(1.0, scale):
+            if gap >= PARITY_TOL * max(1.0, scale):
                 raise AssertionError(f"{phase}: token differs at "
                                      f"step {step} lane {lane} with top-2 "
                                      f"gap {gap}")
@@ -2460,6 +2460,166 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
                              f"{(sc.decode_steps, sc.tokens_out)} on the "
                              f"card, {(sh.decode_steps, sh.tokens_out)} "
                              f"on the CPU")
+    return errs, gaps, same, sc, first
+
+
+def _added(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def _hold_launches(torch, cfg, want: dict, phase: str) -> dict:
+    """The kernels' launches since the counts were set to 0, exactly
+    ``want``, every flash forward on the source its dtype picks; returns
+    them with the float32 sources' entries of the kernels line."""
+    counts = _kernel_counts()
+    if counts != want:
+        raise AssertionError(f"{phase}: launches {counts}, expected {want}")
+    src = _hold_fwd_sources(torch, cfg, counts, phase)
+    return {**counts, "flash_attention_tf32x3": src.get(
+        "flash_attention_tf32x3.cu", 0)}
+
+
+def parity_tp_attention(torch, dev, cfg, gpu, cpu, prompts, phase: str,
+                        case: str, shape, option: str):
+    """``tp_attention`` under a logical mesh of ``shape`` (qwen3_4b: 32
+    heads padded to 33, flash as MHA with 33 kv heads): the card's
+    forward logits against the card's forward without the option within
+    ``TP_TOL`` (and whether they are bit-equal), and against the CPU's
+    forward under the same mesh within ``PARITY_TOL``; flash launched
+    once a layer in each card forward."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import tp_attn_weights
+    from repro_torch.parallel import ctx as pctx
+    t0 = time.perf_counter()
+    mesh = make_test_mesh(*shape)
+    tp_cfg = dataclasses.replace(cfg, **{option: True})
+    tokens = torch.from_numpy(prompts)
+    _zero_kernel_counts()
+    base = registry.forward(cfg, gpu, tokens.to(dev)).cpu()
+    with pctx.use_mesh(mesh):
+        h_eff = tp_attn_weights(tp_cfg, {k: v[0] for k, v in
+                                         gpu["layers"].items()
+                                         if k in ("wq", "wk", "wv",
+                                                  "wo")})[-1]
+        got = registry.forward(tp_cfg, gpu, tokens.to(dev)).cpu()
+        host = registry.forward(tp_cfg, cpu, tokens)
+    fwd = expected_launches(cfg, 0)
+    counts = _hold_launches(torch, cfg, _added(fwd, fwd), phase)
+    scale = float(base.abs().max())
+    err_card = float((got - base).abs().max())
+    if not err_card <= TP_TOL * max(1.0, scale):
+        raise AssertionError(f"{phase}: tp_attention's card logits "
+                             f"{err_card} from the card's without it "
+                             f"(scale {scale})")
+    scale_h = float(host.abs().max())
+    err_cpu = float((got - host).abs().max())
+    if not err_cpu <= PARITY_TOL * max(1.0, scale_h):
+        raise AssertionError(f"{phase}: tp_attention's card logits "
+                             f"{err_cpu} from the CPU's (scale {scale_h})")
+    emit(phase, arch=cfg.name, case=case, mesh=mesh.shape,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, h_eff=h_eff,
+         logits_shape=list(got.shape), card_vs_card_max_abs_err=err_card,
+         card_vs_card_tolerance=TP_TOL, card_bit_equal=bool(
+             torch.equal(got, base)), card_vs_cpu_max_abs_err=err_cpu,
+         tolerance=PARITY_TOL, logit_scale=scale, launches=counts,
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
+def parity_on_mesh(torch, np, dev, cfg, gpu, cpu, prompts, new,
+                   phase: str, case: str, shape, option,
+                   drops_one_shard=None):
+    """:func:`parity_steps` with both sides under a logical mesh of
+    ``shape`` (and ``option`` set in the config, if not ``None``):
+    ``sp_decode`` (decode attention as flash-decoding over the ``model`` axis's
+    sequence shards: the kernel on the card, the sharded formula on the
+    CPU) or a MoE's expert parallelism (each shard routed at its own
+    capacity; every shard's first-layer kept mask equal on both sides,
+    and some slot dropped).  Launches exact."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import ctx as pctx
+    t0 = time.perf_counter()
+    mesh = make_test_mesh(*shape)
+    run_cfg = (cfg if option is None
+               else dataclasses.replace(cfg, **{option: True}))
+    _zero_kernel_counts()
+    with pctx.use_mesh(mesh):
+        errs, gaps, same, sc, first = parity_steps(
+            torch, np, dev, run_cfg, gpu, cpu, prompts, None, new, phase)
+    counts = _hold_launches(torch, cfg, _added(
+        expected_launches(cfg, new - 1),
+        expected_launches(cfg, sc.decode_steps)), phase)
+    moe = None
+    if cfg.n_experts:
+        (cap, keep_c), (_, keep_h) = first
+        dropped = [int((~k).sum()) for k in keep_h]
+        if not torch.equal(keep_c, keep_h) or not sum(dropped):
+            raise AssertionError(f"{phase}: first layer's dropped slots by "
+                                 f"shard {[int((~k).sum()) for k in keep_c]}"
+                                 f" on the card, {dropped} on the CPU (must "
+                                 f"be equal, some)")
+        moe = {"shards": int(keep_h.shape[0]), "capacity": cap,
+               "slots_per_shard": int(keep_h.shape[1]),
+               "first_layer_prefill_dropped": sum(dropped),
+               "dropped_by_shard": dropped,
+               "one_shard_first_layer_prefill_dropped": drops_one_shard}
+    emit(phase, arch=cfg.name, case=case, mesh=mesh.shape, dtype="float32", batch=int(prompts.shape[0]),
+         prompt_len=int(prompts.shape[1]), new_tokens=new,
+         tolerance=PARITY_TOL, logits_max_abs_err=errs,
+         token_gaps_where_differ=gaps, tokens_equal=same,
+         decode_steps=sc.decode_steps, tokens_out=sc.tokens_out, moe=moe,
+         launches=counts, wall_s=time.perf_counter() - t0)
+    return counts
+
+
+def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
+                       spec=PARITY, phase: str = "serve_parity",
+                       mesh_cases=()) -> dict:
+    """Full width, cut depth, float32: the card (kernels) against the
+    CPU (plain versions) on the same parameters and frontend embeddings
+    (:func:`parity_steps`).  ``spec`` is (layers, batch, prompt length,
+    new tokens, config overrides).  A MoE's first layer must drop the
+    same slots on both sides in prefill, and some.  Then each of
+    ``mesh_cases`` on the same parameters and prompts, a path of its own
+    (``{phase}_{case}``): "tp_attention" (:func:`parity_tp_attention`),
+    "sp_decode" and "expert_parallel" (:func:`parity_on_mesh`).  Returns
+    the launches by path."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_layers, batch, prompt_len, new, overrides = spec
+    cfg = dataclasses.replace(configs.get(arch), n_layers=n_layers,
+                              dtype=torch.float32, **overrides)
+    torch.cuda.empty_cache()
+    gpu = registry.init(cfg, torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+    cpu = to_cpu(gpu)
+    prompts = serve_prompts(np, cfg.vocab, batch, prompt_len, seed=5)
+    fe = frontend_embeds(np, cfg, batch, prompt_len, seed=6)
+    _zero_kernel_counts()
+    errs, gaps, same, sc, first = parity_steps(
+        torch, np, dev, cfg, gpu, cpu, prompts, fe, new, phase)
+    drops = None
+    if first:
+        (_, first_c), (_, first_h) = first
+        drops = int((~first_h).sum())
+        if not torch.equal(first_c, first_h) or drops == 0:
+            raise AssertionError(f"{phase}: first layer's dropped slots "
+                                 f"{int((~first_c).sum())} on the card, "
+                                 f"{drops} on the CPU (must be equal, "
+                                 f"non-empty)")
     # the mLSTM forward once a layer in each of the two prefills (decode
     # steps it in plain tensor ops), every float32 call on its split-TF32
     # kernel
@@ -2475,19 +2635,31 @@ def phase_serve_parity(torch, np, dev, arch: str = SERVE[0],
     attn_sources = _hold_fwd_sources(torch, cfg, counts, phase)
     emit(phase, arch=cfg.name, n_layers=n_layers, overrides=overrides,
          dtype="float32",
-         batch=batch, prompt_len=prompt_len, new_tokens=new, tolerance=tol,
+         batch=batch, prompt_len=prompt_len, new_tokens=new,
+         tolerance=PARITY_TOL,
          logits_max_abs_err=errs, token_gaps_where_differ=gaps,
          tokens_equal=same, decode_steps=sc.decode_steps,
          tokens_out=sc.tokens_out, first_layer_prefill_dropped=drops,
          frontend_embeds=None if fe is None else list(fe.shape),
          launches=counts, mlstm_fwd_by_source=fwd_sources,
          attention_fwd_by_source=attn_sources)
-    del card, host, gpu, cpu, cc, ch, lc, lh
-    torch.cuda.empty_cache()
-    return {**counts, "mlstm_chunkwise_tf32x3": fwd_sources.get(
+    paths = {phase: {**counts, "mlstm_chunkwise_tf32x3": fwd_sources.get(
         "mlstm_kernel_tf32x3.cu", 0),
         "flash_attention_tf32x3": attn_sources.get(
-            "flash_attention_tf32x3.cu", 0)}
+            "flash_attention_tf32x3.cu", 0)}}
+    for case in mesh_cases:
+        name = f"{phase}_{case}"
+        if case == "tp_attention":
+            paths[name] = parity_tp_attention(
+                torch, dev, cfg, gpu, cpu, prompts, name, case,
+                *PARITY_MESH_CASES[case])
+        else:
+            paths[name] = parity_on_mesh(
+                torch, np, dev, cfg, gpu, cpu, prompts, new, name, case,
+                *PARITY_MESH_CASES[case], drops_one_shard=drops)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return paths
 
 
 def replayed(report) -> dict:
@@ -3156,24 +3328,25 @@ def main(argv=None) -> int:
     ml = phase_mlstm_chunkwise(torch, np, dev)
     mlb = phase_mlstm_chunkwise_bwd(torch, np, dev)
     by_path = {"serve": phase_serve(torch, np, dev)}
-    by_path["serve_parity"] = phase_serve_parity(torch, np, dev)
+    by_path.update(phase_serve_parity(
+        torch, np, dev, mesh_cases=("tp_attention", "sp_decode")))
     by_path["serve_rglru"] = phase_serve(torch, np, dev, SERVE_RGLRU,
                                          "serve_rglru", seed=8)
-    by_path["serve_parity_rglru"] = phase_serve_parity(
-        torch, np, dev, SERVE_RGLRU[0], PARITY_RGLRU, "serve_parity_rglru")
+    by_path.update(phase_serve_parity(
+        torch, np, dev, SERVE_RGLRU[0], PARITY_RGLRU, "serve_parity_rglru"))
     by_path["serve_xlstm"] = phase_serve(torch, np, dev, SERVE_XLSTM,
                                          "serve_xlstm", seed=9)
-    by_path["serve_parity_xlstm"] = phase_serve_parity(
-        torch, np, dev, SERVE_XLSTM[0], PARITY_XLSTM, "serve_parity_xlstm")
+    by_path.update(phase_serve_parity(
+        torch, np, dev, SERVE_XLSTM[0], PARITY_XLSTM, "serve_parity_xlstm"))
     phase_live_serve(torch, dev)
-    for spec, parity, fam, seed in (
-            (SERVE_MOE, PARITY_MOE, "moe", 10),
-            (SERVE_VLM, PARITY_VLM, "vlm", 11),
-            (SERVE_ENCDEC, PARITY_ENCDEC, "encdec", 12)):
+    for spec, parity, fam, seed, cases in (
+            (SERVE_MOE, PARITY_MOE, "moe", 10, ("expert_parallel",)),
+            (SERVE_VLM, PARITY_VLM, "vlm", 11, ()),
+            (SERVE_ENCDEC, PARITY_ENCDEC, "encdec", 12, ())):
         by_path[f"serve_{fam}"] = phase_serve(torch, np, dev, spec,
                                               f"serve_{fam}", seed=seed)
-        by_path[f"serve_parity_{fam}"] = phase_serve_parity(
-            torch, np, dev, spec[0], parity, f"serve_parity_{fam}")
+        by_path.update(phase_serve_parity(
+            torch, np, dev, spec[0], parity, f"serve_parity_{fam}", cases))
     by_path["train"] = phase_train(torch, np, dev)
     by_path["train_parity"] = phase_train_parity(torch, np, dev)
     parity = {fam: rest for fam, *rest in TRAIN_PARITY_FAMILIES}

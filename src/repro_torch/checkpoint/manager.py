@@ -36,6 +36,8 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import check_sharding
+
 
 def _flatten_with_names(tree, path: str = "") -> List[Tuple[str, Any]]:
     """(keystr name, leaf) pairs in ``jax.tree.flatten`` order."""
@@ -53,6 +55,20 @@ def _unflatten(like, leaves: list):
             return {k: build(t[k]) for k in sorted(t)}
         return next(it)
     return build(like)
+
+
+def _check_shardings(like, shardings, path: str = "") -> None:
+    """``shardings`` has ``like``'s keys, and each of its shardings fits
+    the leaf of ``like`` it stands for."""
+    if isinstance(like, dict) or isinstance(shardings, dict):
+        if not (isinstance(like, dict) and isinstance(shardings, dict)
+                and set(like) == set(shardings)):
+            raise ValueError(f"restore: shardings{path} does not match the "
+                             f"tree restored into")
+        for k in sorted(like):
+            _check_shardings(like[k], shardings[k], f"{path}[{k!r}]")
+        return
+    check_sharding(shardings, tuple(like.shape), f"restore: {path}")
 
 
 def _host(leaf: torch.Tensor) -> torch.Tensor:
@@ -115,12 +131,17 @@ def latest_step(path: os.PathLike) -> Optional[int]:
 def restore(path: os.PathLike, like: Any, step: Optional[int] = None,
             shardings: Any = None) -> tuple:
     """Restore into the structure of ``like`` (a tree of tensors): each
-    leaf takes ``like``'s dtype and device.  ``shardings`` is accepted for
-    the JAX signature and must be None (one device: nothing to re-shard).
-    Returns (tree, step, extra)."""
+    leaf takes ``like``'s dtype and device.  ``shardings`` (optional,
+    a tree of ``parallel.sharding.Sharding`` matching ``like``) is the
+    elastic-restart path's layout on the *current* mesh, which may
+    differ from the saved one's: it must have ``like``'s keys, and every
+    spec's axes must be in its mesh and divide the leaf's dims
+    (``ValueError`` otherwise, as re-sharding onto the mesh would fail).
+    The mesh is logical on the port's one card, so the leaves are then
+    loaded whole onto ``like``'s device: their values are what was
+    saved, whatever the mesh.  Returns (tree, step, extra)."""
     if shardings is not None:
-        raise ValueError("restore: the port has one device; shardings must "
-                         "be None")
+        _check_shardings(like, shardings)
     root = pathlib.Path(path)
     if step is None:
         step = latest_step(root)

@@ -126,6 +126,39 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bhs,bshd->bhd", p, v.float()).to(q.dtype)
 
 
+def decode_attention_sp_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, lengths: torch.Tensor,
+                              shards: int) -> torch.Tensor:
+    """Flash-decoding over ``shards`` contiguous sequence shards, the JAX
+    package's ``decode_attention_sp`` ``local_fn`` with its collectives
+    done over the shard axis: q (B, H, hd); caches (B, S, Hkv, hd) with
+    ``S % shards == 0`` (the caller checks); lengths (B,) -> (B, H, hd)
+    in q's dtype.  Each shard scores float32 ``q * scale`` against its
+    keys and masks past the length; the shards' maxima give a global
+    max; each shard sums its ``exp`` weights ``l`` and weighted values
+    ``o``, the shards' ``l`` and ``o`` are summed, and the result is
+    ``o / max(l, 1e-30)``."""
+    b, h, hd = q.shape
+    _, s, hkv, _ = k_cache.shape
+    s_loc = s // shards
+    qpk = h // hkv
+    k = k_cache.repeat_interleave(qpk, dim=2).float()   # (B, S, H, hd)
+    v = v_cache.repeat_interleave(qpk, dim=2).float()
+    k = k.view(b, shards, s_loc, h, hd)
+    v = v.view(b, shards, s_loc, h, hd)
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32,
+                                          device=q.device))
+    sc = torch.einsum("bhd,bmkhd->bmhk", q.float() * scale, k)
+    pos = torch.arange(s, device=q.device).view(shards, 1, s_loc)
+    valid = pos[None] < lengths.to(q.device)[:, None, None, None]
+    sc = torch.where(valid, sc, NEG_INF)
+    m_g = sc.amax(dim=-1).amax(dim=1)                     # (B, H)
+    p = torch.where(valid, torch.exp(sc - m_g[:, None, :, None]), 0.0)
+    l_g = p.sum(dim=-1).sum(dim=1)                        # (B, H)
+    o_g = torch.einsum("bmhk,bmkhd->bmhd", p, v).sum(dim=1)
+    return (o_g / torch.clamp(l_g, min=1e-30)[..., None]).to(q.dtype)
+
+
 # -- RG-LRU linear recurrence ---------------------------------------------------
 
 

@@ -1,9 +1,14 @@
 """Mesh construction, PyTorch port of ``repro.launch.mesh``.
 
 The port runs on one card, so a mesh here is logical: axis names and
-sizes over that one device, with no collective behind it.  A mesh of
-more than one device cannot be built (``make_production_mesh`` needs
-256; ROADMAP A12 holds the mesh code).
+sizes of any shape over that one device.  The mesh-aware blocks
+(``parallel.sharding``, the expert-parallel MoE, ``tp_attention``,
+``sp_decode``) compute under it what the JAX package's blocks compute on
+a real mesh of that shape: a collective becomes a reduction or a
+permutation over a shard axis on the one device, and nothing is placed
+on another device.  ``make_production_mesh`` (256 or 512 devices) still
+raises: whether a logical mesh of that size is ever entered is left to
+the dry run (ROADMAP A12.2).
 """
 from __future__ import annotations
 
@@ -11,32 +16,46 @@ import dataclasses
 import math
 from typing import Dict, Tuple
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class LogicalMesh:
     """Axis names and sizes over the one device (the counterpart of a
-    ``jax.sharding.Mesh``'s ``shape`` and ``axis_names``)."""
+    ``jax.sharding.Mesh``'s ``shape``, ``axis_names`` and ``devices``)."""
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(f"LogicalMesh: {len(self.axis_names)} names, "
+                             f"{len(self.sizes)} sizes")
+        if any(int(n) < 1 for n in self.sizes):
+            raise ValueError(f"LogicalMesh: axis sizes {self.sizes} must "
+                             f"be at least 1")
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.sizes))
 
+    @property
+    def devices(self) -> np.ndarray:
+        """The logical devices' ids in mesh order, shaped like the mesh
+        (``devices.size`` devices, all on the one card)."""
+        return np.arange(math.prod(self.sizes)).reshape(self.sizes)
+
 
 def make_production_mesh(*, multi_pod: bool = False):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     raise NotImplementedError(
-        f"make_production_mesh: a {shape} mesh needs {math.prod(shape)} "
-        f"devices; the port runs on one card (ROADMAP A12)")
+        f"make_production_mesh: a {shape} mesh of {math.prod(shape)} "
+        f"devices belongs to the dry run, not ported (ROADMAP A12.2)")
 
 
 def make_test_mesh(data: int = 1, model: int = 1, pod: int = 0):
-    """A mesh over the one device: every axis size must be 1."""
-    names = (("pod",) if pod else ()) + ("data", "model")
-    sizes = ((pod,) if pod else ()) + (data, model)
-    if math.prod(sizes) != 1:
-        raise ValueError(f"make_test_mesh: {dict(zip(names, sizes))} needs "
-                         f"{math.prod(sizes)} devices; the port runs on one "
-                         f"(ROADMAP A12)")
-    return LogicalMesh(names, sizes)
+    """A logical mesh of these sizes over the one device, with the JAX
+    signature: axes ("data", "model"), or ("pod", "data", "model") when
+    ``pod`` is given."""
+    if pod:
+        return LogicalMesh(("pod", "data", "model"), (pod, data, model))
+    return LogicalMesh(("data", "model"), (data, model))

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.parallel import ctx as pctx
 
 
 def multi_head_attention(
@@ -37,12 +38,46 @@ def multi_head_attention(
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
-def decode_attention_sp(q, k_cache, v_cache, cache_len):
-    """Flash-decoding over a sequence-sharded cache (a ``shard_map`` over
-    a device mesh in the JAX package): mesh code, not ported."""
-    raise NotImplementedError(
-        "decode_attention_sp shards the KV cache over a device mesh; the "
-        "port's mesh is logical, over one card (ROADMAP A12)")
+def decode_attention_sp(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+    """Flash-decoding over the sequence-sharded KV cache (``sp_decode``),
+    the JAX package's ``decode_attention_sp``: there a ``shard_map`` keeps
+    each chip's cache shard in place (local partial softmax, then a psum
+    of (max, l, o) over the ``model`` axis).  Under an active mesh with a
+    ``model`` axis of size ``m`` the cache's S must split into ``m``
+    shards (``ValueError`` otherwise, as ``shard_map`` requires).  On
+    CPU tensors this is its plain version,
+    :func:`repro_torch.kernels.ref.decode_attention_sp_plain` over ``m``
+    shards; on the card it is the ``decode_attention`` kernel, whose
+    split-S partials and combine are this computation on one device
+    (no second kernel).  Without a mesh or a ``model`` axis it is
+    :func:`decode_attention`, as in the JAX package.  Arguments and
+    result as :func:`decode_attention`."""
+    mesh = pctx.get_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return decode_attention(q, k_cache, v_cache, cache_len)
+    m = mesh.shape["model"]
+    if k_cache.shape[1] % m:
+        raise ValueError(f"decode_attention_sp: a cache of "
+                         f"{k_cache.shape[1]} positions does not split "
+                         f"over a model axis of {m}")
+    if q.device.type != "cpu":
+        return decode_attention(q, k_cache, v_cache, cache_len)
+    return ref.decode_attention_sp_plain(
+        q[:, 0], k_cache, v_cache, _lengths(q, cache_len), m)[:, None]
+
+
+def _lengths(q: torch.Tensor, cache_len) -> torch.Tensor:
+    """(B,) int32 valid lengths on q's device from an int, a scalar or a
+    (B,) vector."""
+    b = q.shape[0]
+    if isinstance(cache_len, int):
+        # a fill on the device, not a host-to-device copy
+        return torch.full((b,), cache_len, dtype=torch.int32,
+                          device=q.device)
+    lengths = torch.as_tensor(cache_len).to(q.device, torch.int32)
+    if lengths.dim() == 0:
+        lengths = lengths.expand(b)
+    return lengths.contiguous()
 
 
 def decode_attention(
@@ -53,14 +88,5 @@ def decode_attention(
 ) -> torch.Tensor:
     """Single-token attention against a (possibly padded) KV cache ->
     (B, 1, H, hd)."""
-    b = q.shape[0]
-    if isinstance(cache_len, int):
-        # a fill on the device, not a host-to-device copy
-        lengths = torch.full((b,), cache_len, dtype=torch.int32,
-                             device=q.device)
-    else:
-        lengths = torch.as_tensor(cache_len).to(q.device, torch.int32)
-        if lengths.dim() == 0:
-            lengths = lengths.expand(b)
     return ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                                lengths.contiguous())[:, None]
+                                _lengths(q, cache_len))[:, None]

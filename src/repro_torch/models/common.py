@@ -64,8 +64,8 @@ class ModelConfig:
     # --- training-time knobs (overridable per shape) ---
     remat: bool = True
     scan_layers: bool = True
-    # --- optimization knobs of the JAX package (mesh code; the port's
-    # dense transformer raises on tp_attention and sp_decode) ---
+    # --- optimization knobs of the JAX package (tp_attention and
+    # sp_decode act under an active mesh) ---
     tp_attention: bool = False
     sp_decode: bool = False
     gather_weights_once: bool = False
@@ -103,6 +103,13 @@ def stacked(n: int, tree: dict) -> dict:
     the ``F32`` marker."""
     return {k: stacked(n, v) if isinstance(v, dict)
             else type(v)((n,) + tuple(v)) for k, v in tree.items()}
+
+
+def stacked_axes(axes_one: dict) -> dict:
+    """Logical axes of a stacked layer tree: ``"layer"`` before each
+    leaf's axes."""
+    return {k: stacked_axes(v) if isinstance(v, dict) else ("layer",) + v
+            for k, v in axes_one.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +184,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
+
+
+MLP_AXES = {
+    "w_gate": ("embed", "mlp"),
+    "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+}
 
 
 def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:

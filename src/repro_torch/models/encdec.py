@@ -59,6 +59,25 @@ def _dec_layer_specs(cfg: ModelConfig) -> dict:
             **_attn_specs(cfg, "x")}
 
 
+_ENC_AXES = {
+    "ln1": (None,),
+    "wq": ("embed", "heads", None),
+    "wk": ("embed", "kv", None),
+    "wv": ("embed", "kv", None),
+    "wo": ("heads", None, "embed"),
+    "ln2": (None,),
+    "mlp": dict(cm.MLP_AXES),
+}
+
+_DEC_AXES = dict(_ENC_AXES, **{
+    "ln_x": (None,),
+    "xq": ("embed", "heads", None),
+    "xk": ("embed", "kv", None),
+    "xv": ("embed", "kv", None),
+    "xo": ("heads", None, "embed"),
+})
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree with a shape tuple at every leaf (no alloc)."""
     n_enc = cfg.n_enc_layers or cfg.n_layers
@@ -70,6 +89,18 @@ def param_specs(cfg: ModelConfig) -> dict:
         "dec": cm.stacked(cfg.n_layers, _dec_layer_specs(cfg)),
         "final_norm": (cfg.d_model,),
         "lm_head": (cfg.d_model, cfg.vocab),
+    }
+
+
+def logical_axes(cfg: ModelConfig) -> dict:
+    return {
+        "frontend_proj": (None, "embed"),
+        "embed": ("vocab", "embed"),
+        "enc": cm.stacked_axes(_ENC_AXES),
+        "enc_norm": (None,),
+        "dec": cm.stacked_axes(_DEC_AXES),
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
     }
 
 
@@ -218,6 +249,11 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
             "v": (l, batch, max_len, hkv, hd),
             "xk": (l, batch, se, hkv, hd), "xv": (l, batch, se, hkv, hd),
             "len": ()}
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    ax = ("layer", "batch", "kv_seq", "kv", None)
+    return {"k": ax, "v": ax, "xk": ax, "xv": ax, "len": ()}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

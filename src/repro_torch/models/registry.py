@@ -3,8 +3,10 @@ architecture exposes one uniform interface.
 
 Every family is ported: ``dense``, ``moe`` and ``vlm`` run the
 transformer, ``encdec`` the encoder-decoder, ``rglru`` and ``xlstm``
-their own modules.  The sharding metadata (``logical_axes``,
-``cache_axes``) waits for the mesh code (ROADMAP A12).
+their own modules.  Each also gives its sharding metadata
+(``logical_axes`` of the parameters, ``cache_axes`` of the serving
+cache), which ``repro_torch.parallel.sharding`` maps onto a logical
+mesh as the JAX package maps it onto a real one.
 """
 from __future__ import annotations
 
@@ -40,6 +42,10 @@ def param_specs(cfg: ModelConfig):
     return _module(cfg).param_specs(cfg)
 
 
+def logical_axes(cfg: ModelConfig):
+    return _module(cfg).logical_axes(cfg)
+
+
 def forward(cfg: ModelConfig, params, tokens, frontend_embeds=None,
             return_aux: bool = False):
     return _module(cfg).forward(cfg, params, tokens,
@@ -60,6 +66,10 @@ def decode_step(cfg: ModelConfig, params, token, cache):
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     return _module(cfg).cache_specs(cfg, batch, max_len)
+
+
+def cache_axes(cfg: ModelConfig):
+    return _module(cfg).cache_axes(cfg)
 
 
 def has_frontend(cfg: ModelConfig) -> bool:

@@ -91,6 +91,34 @@ def _attn_specs(cfg: ModelConfig) -> dict:
     }
 
 
+_REC_AXES = {
+    "ln": (None,),
+    "w_main": ("embed", "lru"),
+    "w_gate": ("embed", "lru"),
+    "conv": (None, "lru"),
+    "w_a": ("lru", None),
+    "b_a": (None,),
+    "w_i": ("lru", None),
+    "b_i": (None,),
+    "lam": (None,),
+    "w_out": ("lru", "embed"),
+    "ln2": (None,),
+    "ff1": ("embed", "mlp"),
+    "ff2": ("mlp", "embed"),
+}
+
+_ATTN_AXES = {
+    "ln": (None,),
+    "wq": ("embed", "heads", None),
+    "wk": ("embed", "kv", None),
+    "wv": ("embed", "kv", None),
+    "wo": ("heads", None, "embed"),
+    "ln2": (None,),
+    "ff1": ("embed", "mlp"),
+    "ff2": ("mlp", "embed"),
+}
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree with a shape at every leaf (no alloc); float32
     leaves are ``common.F32`` shapes."""
@@ -101,6 +129,16 @@ def param_specs(cfg: ModelConfig) -> dict:
         "attn": cm.stacked(n_attn, _attn_specs(cfg)),
         "final_norm": (cfg.d_model,),
         "lm_head": (cfg.d_model, cfg.vocab),
+    }
+
+
+def logical_axes(cfg: ModelConfig) -> dict:
+    return {
+        "embed": ("vocab", "embed"),
+        "rec": cm.stacked_axes(_REC_AXES),
+        "attn": cm.stacked_axes(_ATTN_AXES),
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
     }
 
 
@@ -275,6 +313,16 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
         "conv": (n_rec, batch, 3, w),
         "k": kv,
         "v": kv,
+        "len": (),
+    }
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    return {
+        "h": ("layer", "batch", "lru"),
+        "conv": ("layer", "batch", None, "lru"),
+        "k": ("layer", "batch", "kv_seq", "kv", None),
+        "v": ("layer", "batch", "kv_seq", "kv", None),
         "len": (),
     }
 

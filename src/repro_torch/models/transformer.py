@@ -10,9 +10,16 @@ attention (RoPE, optional QK-norm, optional sliding window) -> residual
 -> pre-RMSNorm -> SwiGLU MLP or MoE -> residual.  Attention goes through
 the kernels (:mod:`repro_torch.models.attention`).
 
-Not ported here: the mesh options ``tp_attention`` and ``sp_decode``
-(ROADMAP A12: the port's mesh is logical, over one card); each raises
-``NotImplementedError``.
+The mesh options act under an active mesh (``parallel.ctx.use_mesh``),
+which on the port's one card is logical (``repro_torch.launch.mesh``):
+``tp_attention`` gives the forward the JAX package's TP-aligned
+attention weights (:func:`tp_attn_weights`: one kv head per q head,
+heads zero-padded to a multiple of the ``model`` axis, the same flash
+kernel run with ``Hkv = H_eff``); ``sp_decode`` runs each decode step's
+attention as flash-decoding over the ``model`` axis's sequence shards
+(:func:`repro_torch.models.attention.decode_attention_sp`).  Under a
+mesh a MoE layer takes the expert-parallel path
+(:func:`repro_torch.models.moe.moe_ffn_sharded`).
 
 Parameters keep the JAX tree, layers stacked on a leading ``L``
 dimension (a MoE layer's experts under ``"moe"``, and no ``"mlp"``);
@@ -23,20 +30,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.engine_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import moe
 from repro_torch.models.common import ModelConfig
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise on what this port of the transformer does not cover."""
-    if cfg.tp_attention or cfg.sp_decode:
-        raise NotImplementedError(
-            f"{cfg.name}: tp_attention and sp_decode are mesh options; the "
-            f"port's mesh is logical, over one card (ROADMAP A12)")
+from repro_torch.parallel import ctx as pctx
 
 
 # ---------------------------------------------------------------------------
@@ -65,10 +66,28 @@ def _layer_specs(cfg: ModelConfig) -> dict:
     return p
 
 
+def _layer_axes(cfg: ModelConfig) -> dict:
+    p = {
+        "ln1": (None,),
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv", None),
+        "wv": ("embed", "kv", None),
+        "wo": ("heads", None, "embed"),
+        "ln2": (None,),
+    }
+    if cfg.n_experts > 0:
+        p["moe"] = dict(moe.MOE_AXES)
+    else:
+        p["mlp"] = dict(cm.MLP_AXES)
+    if cfg.qk_norm:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
+    return p
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree with a shape tuple at every leaf (no alloc);
     the MoE router is a ``common.F32`` shape."""
-    check_dense(cfg)
     p = {
         "embed": (cfg.vocab, cfg.d_model),
         "layers": cm.stacked(cfg.n_layers, _layer_specs(cfg)),
@@ -80,13 +99,24 @@ def param_specs(cfg: ModelConfig) -> dict:
     return p
 
 
+def logical_axes(cfg: ModelConfig) -> dict:
+    p = {
+        "embed": ("vocab", "embed"),
+        "layers": cm.stacked_axes(_layer_axes(cfg)),
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
+    if cfg.frontend:
+        p["frontend_proj"] = (None, "embed")
+    return p
+
+
 def init(cfg: ModelConfig, generator: torch.Generator, *,
          device=None) -> dict:
     """Random parameters at the config's shapes and dtype, with the JAX
     package's scales: norms 0, embeddings N(0, 0.02), projections
     N(0, 1/fan_in); the MoE router float32.  ``generator`` must live
     on ``device`` (``None`` means CUDA and raises without it)."""
-    check_dense(cfg)
     dev = resolve_device(device, "the model")
     dt, n = cfg.dtype, cfg.n_layers
 
@@ -134,15 +164,44 @@ def layer(params: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def tp_attn_weights(cfg: ModelConfig, lp: dict):
+    """TP-aligned attention weights (``cfg.tp_attention``), the JAX
+    package's ``tp_attn_weights``: under an active mesh with a
+    ``model`` axis of size ``tp``, (a) the KV projection weights are
+    repeated to one kv head per q head (identical k/v values per group)
+    and (b) the q/kv/o head dims are zero-padded to a multiple of ``tp``
+    (padded o-rows are zero, so outputs are unchanged up to the order of
+    sums).  Without the option, a mesh or a ``model`` axis the weights
+    pass unchanged.  The JAX version also pins each weight's sharding
+    (heads over ``model``), which changes no value and has no
+    counterpart on one card.  Returns (wq, wk, wv, wo, h_eff)."""
+    mesh = pctx.get_mesh()
+    wq, wk, wv, wo = lp["wq"], lp["wk"], lp["wv"], lp["wo"]
+    h = cfg.n_heads
+    if not cfg.tp_attention or mesh is None or "model" not in \
+            mesh.axis_names:
+        return wq, wk, wv, wo, h
+    tp = mesh.shape["model"]
+    wk = wk.repeat_interleave(cfg.q_per_kv, dim=1)   # one kv head per q
+    wv = wv.repeat_interleave(cfg.q_per_kv, dim=1)
+    h_eff = -(-h // tp) * tp                         # ceil to TP multiple
+    if h_eff != h:
+        wq, wk, wv = (F.pad(w, (0, 0, 0, h_eff - h)) for w in (wq, wk, wv))
+        wo = F.pad(wo, (0, 0, 0, 0, 0, h_eff - h))
+    return wq, wk, wv, wo, h_eff
+
+
 def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-         positions: torch.Tensor):
+         positions: torch.Tensor, w=None):
     """Pre-norm, projections, QK-norm and RoPE -> q (B,S,H,hd), k and v
-    (B,S,Hkv,hd)."""
+    (B,S,Hkv,hd); ``w`` = (wq, wk, wv) in place of ``lp``'s (the head
+    counts are the weights')."""
     b, s, d = x.shape
+    wq, wk, wv = w or (lp["wq"], lp["wk"], lp["wv"])
     h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q = (h @ lp["wq"].reshape(d, -1)).view(b, s, cfg.n_heads, cfg.hd)
-    k = (h @ lp["wk"].reshape(d, -1)).view(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (h @ lp["wv"].reshape(d, -1)).view(b, s, cfg.n_kv_heads, cfg.hd)
+    q = (h @ wq.reshape(d, -1)).view(b, s, wq.shape[1], cfg.hd)
+    k = (h @ wk.reshape(d, -1)).view(b, s, wk.shape[1], cfg.hd)
+    v = (h @ wv.reshape(d, -1)).view(b, s, wv.shape[1], cfg.hd)
     if cfg.qk_norm:
         q = cm.head_rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = cm.head_rms_norm(k, lp["k_norm"], cfg.norm_eps)
@@ -151,9 +210,10 @@ def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     return q, k, v
 
 
-def _out_proj(lp: dict, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+def _out_proj(wo: torch.Tensor, x: torch.Tensor,
+              o: torch.Tensor) -> torch.Tensor:
     b, s, h, hd = o.shape
-    return x + o.reshape(b, s, h * hd) @ lp["wo"].reshape(h * hd, -1)
+    return x + o.reshape(b, s, h * hd) @ wo.reshape(h * hd, -1)
 
 
 def _ffn_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
@@ -188,10 +248,12 @@ def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def _block(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
            lp: dict, aux: bool = False):
     """One decoder layer of the scoring / training forward -> (x, aux
-    loss or ``None``)."""
-    q, k, v = _qkv(cfg, lp, x, positions)
+    loss or ``None``); under ``tp_attention`` and a mesh the attention
+    runs on :func:`tp_attn_weights`."""
+    wq, wk, wv, wo, _ = tp_attn_weights(cfg, lp)
+    q, k, v = _qkv(cfg, lp, x, positions, (wq, wk, wv))
     o = attn.multi_head_attention(q, k, v, causal=True, window=cfg.window)
-    return _ffn_block(cfg, lp, _out_proj(lp, x, o), aux)
+    return _ffn_block(cfg, lp, _out_proj(wo, x, o), aux)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -204,7 +266,6 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``maybe_remat``), and the per-layer parameters are taken by one
     ``unbind`` of each stacked leaf (:func:`common.unstack`), whose
     backward stacks the layers' gradients once."""
-    check_dense(cfg)
     x = embed_tokens(cfg, params, tokens, frontend_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)
     block = cm.maybe_remat(cfg, _block)
@@ -233,7 +294,6 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     allocated once at ``max_len`` (default S + 64, at least S) and
     filled layer by layer; positions from S on are zero until decode
     writes them."""
-    check_dense(cfg)
     x = embed_tokens(cfg, params, tokens, frontend_embeds)
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)
@@ -248,7 +308,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         vs[i, :, :s] = v
         o = attn.multi_head_attention(q, k, v, causal=True,
                                       window=cfg.window)
-        x, _ = _ffn_block(cfg, lp, _out_proj(lp, x, o))
+        x, _ = _ffn_block(cfg, lp, _out_proj(lp["wo"], x, o))
     logits = cm.final_logits(cfg, params, x[:, -1])
     return logits, {"k": ks, "v": vs, "len": s}
 
@@ -260,8 +320,14 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     Returns (logits (B,V) float32, cache).  The new token's K/V are
     written **in place** into ``cache["k"]``/``cache["v"]`` at position
     ``cache["len"]`` (the JAX version builds new arrays), and the
-    returned dict shares those tensors with ``len + 1``."""
-    check_dense(cfg)
+    returned dict shares those tensors with ``len + 1``.
+
+    Under ``cfg.sp_decode`` each layer's attention is
+    :func:`~repro_torch.models.attention.decode_attention_sp`
+    (flash-decoding over the active mesh's ``model`` axis).  The JAX
+    version first pins the cache slice's layout (``_pin_seq_sharding``:
+    sequence over ``model``, batch over the data axes), which changes
+    no value and has no counterpart on one card."""
     n = int(cache["len"])
     ks, vs = cache["k"], cache["v"]
     if n >= ks.shape[2]:
@@ -276,8 +342,11 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
         q, k, v = _qkv(cfg, lp, x, positions)
         ks[i, :, n] = k[:, 0]
         vs[i, :, n] = v[:, 0]
-        o = attn.decode_attention(q, ks[i], vs[i], lengths)
-        x, _ = _ffn_block(cfg, lp, _out_proj(lp, x, o))
+        if cfg.sp_decode:
+            o = attn.decode_attention_sp(q, ks[i], vs[i], lengths)
+        else:
+            o = attn.decode_attention(q, ks[i], vs[i], lengths)
+        x, _ = _ffn_block(cfg, lp, _out_proj(lp["wo"], x, o))
     logits = cm.final_logits(cfg, params, x[:, 0])
     return logits, {"k": ks, "v": vs, "len": n + 1}
 
@@ -285,3 +354,8 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     shp = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": shp, "v": shp, "len": ()}
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    ax = ("layer", "batch", "kv_seq", "kv", None)
+    return {"k": ax, "v": ax, "len": ()}

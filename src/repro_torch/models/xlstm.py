@@ -95,6 +95,30 @@ def _slstm_specs(cfg: ModelConfig) -> dict:
     }
 
 
+_MLSTM_AXES = {
+    "ln": (None,),
+    "w_up": ("embed", "mlp"),
+    "conv": (None, "mlp"),
+    "wq": ("mlp", None),
+    "wk": ("mlp", None),
+    "wv": ("mlp", None),
+    "w_gates": ("mlp", None),
+    "b_gates": (None,),
+    "w_down": ("mlp", "embed"),
+}
+
+_SLSTM_AXES = {
+    "ln": (None,),
+    "w_in": ("embed", "mlp"),
+    "r": (None, "heads", None, None),
+    "b": (None,),
+    "w_out": (None, "embed"),
+    "ln2": (None,),
+    "ff1": ("embed", "mlp"),
+    "ff2": ("mlp", "embed"),
+}
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree with a shape at every leaf (no alloc); float32
     leaves are ``common.F32`` shapes."""
@@ -105,6 +129,16 @@ def param_specs(cfg: ModelConfig) -> dict:
         "slstm": cm.stacked(len(s_ids), _slstm_specs(cfg)),
         "final_norm": (cfg.d_model,),
         "lm_head": (cfg.d_model, cfg.vocab),
+    }
+
+
+def logical_axes(cfg: ModelConfig) -> dict:
+    return {
+        "embed": ("vocab", "embed"),
+        "mlstm": cm.stacked_axes(_MLSTM_AXES),
+        "slstm": cm.stacked_axes(_SLSTM_AXES),
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
     }
 
 
@@ -327,6 +361,16 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
         "m_n": F32((len(m_ids), batch, h, hd_m)),
         "m_conv": (len(m_ids), batch, 3, din),
         "s_h": F32((len(s_ids), 4, batch, h, hd_s)),
+        "len": (),
+    }
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    return {
+        "m_c": ("layer", "batch", None, None, "state_v"),
+        "m_n": ("layer", "batch", None, None),
+        "m_conv": ("layer", "batch", None, "mlp"),
+        "s_h": ("layer", None, "batch", None, None),
         "len": (),
     }
 

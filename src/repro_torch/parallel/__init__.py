@@ -1,1 +1,1 @@
-from repro_torch.parallel import ctx  # noqa: F401
+from repro_torch.parallel import ctx, sharding  # noqa: F401

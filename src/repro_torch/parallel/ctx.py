@@ -2,10 +2,12 @@
 ``repro.parallel.ctx``.
 
 The step builders and the trainer set the active mesh with
-``use_mesh``; blocks that would communicate consult it.  The port runs
-on one card, where the mesh is logical (``repro_torch.launch.mesh``)
-and no block communicates, so the mesh has no effect on what is
-computed.
+``use_mesh``; the communication-aware blocks consult it (MoE expert
+parallelism, sequence-sharded decode, ``tp_attention``).  The port runs
+on one card, where the mesh is logical (``repro_torch.launch.mesh``):
+those blocks compute what the JAX package's compute on a real mesh of
+the same shape, their collectives done over a shard axis on the one
+device.
 """
 from __future__ import annotations
 

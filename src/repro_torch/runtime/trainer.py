@@ -10,7 +10,11 @@ The trainer runs on ``device`` (``None`` means CUDA and raises without
 it).  The step is a plain function rebuilt by ``_build``; nothing is
 compiled, and parameters and moments are updated in place.  A mesh is
 logical on the port's one card (``repro_torch.launch.mesh``): it is set
-as the active mesh while the trainer runs and places nothing.
+as the active mesh while the trainer runs (a MoE takes the
+expert-parallel path under it), ``_build`` computes the train state's
+shardings on it (``train_state_shardings``), and the elastic restart
+hands them to ``restore``, which checks them and loads the saved values
+onto the card.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.optim.compress import compress_grads, ef_init
 from repro_torch.parallel import ctx as pctx
 from repro_torch.runtime.failures import (FailureInjector, SimulatedHostFailure,
                                           StragglerMonitor)
-from repro_torch.train.step import build_train_step
+from repro_torch.train.step import build_train_step, train_state_shardings
 
 
 def _default_checkpoint_dir() -> str:
@@ -91,8 +95,13 @@ class Trainer:
         if tcfg.compress_grads:
             step_fn = self._with_compression(step_fn)
         self.step = step_fn
-        # one device: nothing to shard, whatever the mesh
-        self.p_sh = self.o_sh = None
+        if self.mesh is not None:
+            p_sh, o_sh = train_state_shardings(self.cfg, self.mesh)
+            if tcfg.compress_grads:
+                o_sh = dict(o_sh, ef=p_sh)
+            self.p_sh, self.o_sh = p_sh, o_sh
+        else:
+            self.p_sh = self.o_sh = None
 
     def _with_compression(self, step_fn):
         cfg = self.cfg
@@ -171,8 +180,10 @@ class Trainer:
         resume from the last committed checkpoint."""
         params0, opt0 = self.init_state()          # fresh buffers
         like = {"params": params0, "opt": opt0}
+        shardings = ({"params": self.p_sh, "opt": self.o_sh}
+                     if self.mesh is not None else None)
         try:
-            state, step, _ = self.ckpt.restore_latest(like)
+            state, step, _ = self.ckpt.restore_latest(like, shardings)
         except FileNotFoundError:
             self.log("[trainer] no checkpoint yet; restart from scratch")
             return params0, opt0, 0

@@ -15,14 +15,20 @@ load-balancing loss, as the JAX step does), VLM and encoder-decoder
 gradient, as ``jax.grad`` gives it, so AdamW still decays it; a loss
 that reaches no leaf raises.
 
-The JAX package's sharding constraints (``cfg.gather_weights_once``,
-microbatch sharding) have no effect on one device and are left out, as
-JAX skips them without a mesh; ``train_state_shardings`` and
-``batch_shardings`` are mesh code (ROADMAP A12).
+Under an active mesh (logical on the port's one card) the JAX step adds
+two ``with_sharding_constraint``s, which change no value: the weights
+gathered once over the FSDP axis (``cfg.gather_weights_once``) and each
+microbatch sharded over every data axis.  The port computes the first's
+specs (:func:`gathered_shardings`, so a parameter tree that does not
+fit the family's axes raises, as in JAX); the second is a layout of a
+fixed spec, which raises nothing, and is left out.
+``train_state_shardings`` and ``batch_shardings`` give the specs of the
+train state and the batch on the mesh, as the JAX package's do (what
+each shard would hold; the tensors stay whole on the card).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -31,6 +37,8 @@ from repro_torch.models.common import ModelConfig, softmax_cross_entropy
 from repro_torch.optim import (AdamWConfig, adamw_update, lr_schedule,
                                opt_state_specs)
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel import sharding as shd
 
 
 def _loss_fn(cfg: ModelConfig, params, tokens, labels, frontend_embeds):
@@ -92,6 +100,9 @@ def build_train_step(cfg: ModelConfig, *, n_microbatch: int = 1,
         b = tokens.shape[0]
         assert b % n_microbatch == 0, (b, n_microbatch)
         mb = b // n_microbatch
+        mesh = pctx.get_mesh()
+        if cfg.gather_weights_once and mesh is not None:
+            gathered_shardings(cfg, mesh, params)
         fe_all = batch.get("frontend_embeds")
         if n_microbatch == 1:
             grads, loss = grads_of(cfg, params, tokens, batch["labels"],
@@ -120,6 +131,46 @@ def build_train_step(cfg: ModelConfig, *, n_microbatch: int = 1,
         return params2, opt_state2, metrics
 
     return step
+
+
+def gathered_shardings(cfg: ModelConfig, mesh, params):
+    """The TP-only layout that ``cfg.gather_weights_once`` constrains the
+    weights to under ``mesh`` (the FSDP dims ``embed`` and
+    ``expert_mlp`` replicated), over the parameter tree ``params``.
+    Raises ``ValueError`` where the tree does not fit the family's
+    logical axes, as JAX's tree map does; no value depends on it."""
+    rules = dict(shd.DEFAULT_RULES, embed=None, expert_mlp=None)
+    return shd.shardings_from_axes(registry.logical_axes(cfg), mesh, rules,
+                                   params)
+
+
+# ---------------------------------------------------------------------------
+# Sharding helpers
+# ---------------------------------------------------------------------------
+
+
+def train_state_shardings(cfg: ModelConfig, mesh,
+                          rules: Optional[dict] = None):
+    """(param_shardings, opt_shardings): trees of
+    :class:`~repro_torch.parallel.sharding.Sharding` with the parameter
+    tree's keys (and the optimizer state's: ``m``, ``v``, ``count``)."""
+    axes = registry.logical_axes(cfg)
+    p_specs = registry.param_specs(cfg)
+    p_sh = shd.shardings_from_axes(axes, mesh, rules, p_specs)
+    o_sh = {
+        "m": p_sh,
+        "v": p_sh,
+        "count": shd.Sharding(mesh, ()),
+    }
+    return p_sh, o_sh
+
+
+def batch_shardings(cfg: ModelConfig, mesh, specs: Dict) -> Dict:
+    """Each batch leaf's sharding: batch over the data axes, the rest
+    replicated; ``specs`` maps names to shapes or to anything with
+    ``.shape``."""
+    return {k: shd.batch_sharding(mesh, ndim=len(getattr(s, "shape", s)))
+            for k, s in specs.items()}
 
 
 def train_state_specs(cfg: ModelConfig):

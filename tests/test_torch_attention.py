@@ -166,11 +166,24 @@ def test_model_decode_attention_takes_scalar_or_vector_len(cache_len):
 
 
 def test_model_attention_not_on_path_raises():
+    """``q_offset != 0`` raises (not on a path); ``decode_attention_sp``
+    (A12.1) is ``decode_attention`` without a mesh and, under a logical
+    mesh of m sequence shards, agrees with it within ``TOL``."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import ctx as tctx
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tattn.multi_head_attention(q, q, q, q_offset=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tattn.decode_attention_sp(q, q, q, 1)
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=g)
+               for shape in ((2, 1, 4, 8), (2, 12, 2, 8), (2, 12, 2, 8)))
+    want = tattn.decode_attention(q, k, v, 9)
+    assert torch.equal(tattn.decode_attention_sp(q, k, v, 9), want)
+    for m in (1, 3, 4):
+        with tctx.use_mesh(make_test_mesh(1, m)):
+            got = tattn.decode_attention_sp(q, k, v, 9)
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   **TOL["float32"])
 
 
 # ------------------------------------------------------------ the wrappers

@@ -307,6 +307,35 @@ def test_serving_families_card_vs_cpu(dev, arch):
         _close(lg.cpu(), lc)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [(2, 128), (4, 1)])
+def test_one_shard_moe_is_the_unsharded_dispatch(dev, dtype, tokens):
+    """olmoe_1b_7b's MoE layer at full width on the card, a prefill of
+    2 x 128 tokens (capacity 40: slots drop) and a decode step of 4:
+    ``moe_ffn_reference``, and ``moe_ffn`` under a (1, 1) mesh, equal
+    the dispatch on (T, D) with no shard axis (``tests/moe_dispatch_2d.py``)
+    bit for bit, outputs, aux loss and gradients."""
+    from moe_dispatch_2d import grads, moe_2d
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel import ctx
+    cfg = dataclasses.replace(configs.get("olmoe_1b_7b"), dtype=dtype)
+    p = {k: v[0] for k, v in moe.moe_params(
+        torch.Generator(device=dev).manual_seed(4), cfg, 1,
+        device=dev).items()}
+    x = torch.randn(*tokens, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5)
+                    ).to(dtype)
+    want = grads(moe_2d, cfg, p, x)
+    with ctx.use_mesh(make_test_mesh(1, 1)):
+        on_mesh = grads(moe.moe_ffn, cfg, p, x)
+    for got in (grads(moe.moe_ffn_reference, cfg, p, x), on_mesh):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert all(torch.equal(got[2][n], g) for n, g in want[2].items())
+
+
 # (B, H, Hkv, Sq, Sk, hd, causal, window): head dims that are not multiples
 # of 16 (the bf16 kernel pads them to 64), one query row, fewer queries
 # than keys under the causal mask, a window narrower than a key tile,

@@ -45,7 +45,8 @@ def test_port_files_exist():
                 "optim/adamw.py", "optim/schedule.py", "optim/compress.py",
                 "train/step.py", "data/pipeline.py",
                 "checkpoint/manager.py", "runtime/trainer.py",
-                "parallel/ctx.py", "launch/mesh.py", "live/__main__.py",
+                "parallel/ctx.py", "parallel/sharding.py", "launch/mesh.py",
+                "live/__main__.py",
                 "core/des.py", "core/workloads.py", "launch/shapes.py"):
         assert f"repro_torch/{mod}" in names, mod
     for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",

@@ -180,27 +180,59 @@ def test_non_dense_families_raise(arch):
     ("tp_attention", True, "A12"), ("sp_decode", True, "A12"),
     ("moe_ffn_sharded", None, "A12")])
 def test_dense_options_not_ported_raise(field, value, item):
-    """The mesh options raise, naming ROADMAP A12: ``tp_attention`` and
-    ``sp_decode`` in ``check_dense``, the expert-parallel MoE path when
-    called.  The MoE layers and the patch frontend (A11) are ported:
-    ``check_dense`` takes them and the parameter tree grows their
-    leaves."""
-    base = tconfigs.get_smoke("qwen3_4b")
+    """Every option of the dense transformer runs.  The MoE layers and
+    the patch frontend (A11) grow the parameter tree's leaves.  The mesh
+    options (A12.1) act under a logical mesh: ``tp_attention`` at (1, 3)
+    (4 heads padded to 6) and ``sp_decode`` at (1, 2) give the logits
+    of the model without them within 1e-4 x max(1, scale), and both are
+    bit-equal to it without a mesh; the expert-parallel MoE at (1, 1) is
+    the one-shard path bit for bit, and at (2, 2) routes four shards."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import ctx as tctx
+    base = dataclasses.replace(tconfigs.get_smoke("qwen3_4b"),
+                               dtype=torch.float32)
     if field == "moe_ffn_sharded":
         from repro_torch.models import moe
-        cfg = tconfigs.get_smoke("olmoe_1b_7b")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            moe.moe_ffn_sharded(cfg, {}, torch.zeros(1, 2, cfg.d_model))
+        cfg = dataclasses.replace(tconfigs.get_smoke("olmoe_1b_7b"),
+                                  dtype=torch.float32)
+        p = treg.init(
+            cfg, torch.Generator().manual_seed(0), device="cpu")
+        lp = {k: v[0] for k, v in p["layers"]["moe"].items()}
+        x = torch.randn((2, 8, cfg.d_model),
+                        generator=torch.Generator().manual_seed(1))
+        ref = moe.moe_ffn_reference(cfg, lp, x)
+        with tctx.use_mesh(make_test_mesh(1, 1)):
+            one = moe.moe_ffn_sharded(cfg, lp, x)
+        assert all(torch.equal(a, b) for a, b in zip(one, ref))
+        with tctx.use_mesh(make_test_mesh(2, 2)):
+            y, aux = moe.moe_ffn_sharded(cfg, lp, x)
+        assert y.shape == x.shape and bool(torch.isfinite(y).all())
+        assert aux.shape == () and float(aux) > 0
         return
     cfg = dataclasses.replace(base, **{field: value})
+    specs = treg.param_specs(cfg)
     if item == "A11":
-        ttf.check_dense(cfg)
-        specs = treg.param_specs(cfg)
         assert ("moe" in specs["layers"]) == (field == "n_experts")
         assert ("frontend_proj" in specs) == (field == "frontend")
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ttf.check_dense(cfg)
+    params = treg.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 12),
+                           generator=torch.Generator().manual_seed(2))
+
+    def run(c):
+        if field == "tp_attention":
+            return treg.forward(c, params, tokens)
+        _, cache = treg.prefill(c, params, tokens[:, :8])
+        return torch.stack([treg.decode_step(c, params, tokens[:, i],
+                                             cache)[0]
+                            for i in range(8, 12)])
+    want = run(base)
+    assert torch.equal(run(cfg), want)
+    with tctx.use_mesh(make_test_mesh(1, 3 if field == "tp_attention"
+                                      else 2)):
+        got = run(cfg)
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
 
 
 def test_init_lands_on_cuda_unless_asked(monkeypatch):

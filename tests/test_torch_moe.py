@@ -185,9 +185,50 @@ def test_bfloat16_layer_routes_in_float32():
 
 
 def test_sharded_path_raises():
-    _, tcfg, p, x = _layer_inputs("random")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tmoe.moe_ffn_sharded(tcfg, {k: _t(v) for k, v in p.items()}, _t(x))
+    """The expert-parallel path (A12.1) under a logical (2, 1) mesh: each
+    batch row is a shard routed at its own capacity, as JAX's
+    ``_local_moe`` on that row's tokens, within 1e-5 x max(1, scale);
+    aux is the shards' mean.  At (1, 1) it is ``moe_ffn_reference``."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import ctx as tctx
+    jcfg, tcfg, p, x = _layer_inputs("drops")
+    tp = {k: _t(v) for k, v in p.items()}
+    with tctx.use_mesh(make_test_mesh(1, 1)):
+        one = tmoe.moe_ffn(tcfg, tp, _t(x))
+    assert all(torch.equal(a, b) for a, b in
+               zip(one, tmoe.moe_ffn_reference(tcfg, tp, _t(x))))
+    with tctx.use_mesh(make_test_mesh(2, 1)):
+        y, aux = tmoe.moe_ffn_sharded(tcfg, tp, _t(x))
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    s = x.shape[1]
+    outs = [jmoe._local_moe(jnp.asarray(x[i]), jp, jcfg,
+                            jmoe._capacity(s, jcfg)) for i in range(2)]
+    _close(y.numpy(), np.stack([np.asarray(o[0]) for o in outs]), 1e-5)
+    _close(aux.numpy(), np.mean([float(o[1]) for o in outs]), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_one_shard_is_the_unsharded_dispatch(case, dtype):
+    """``moe_ffn_reference``, and ``moe_ffn`` under a (1, 1) mesh, equal
+    the dispatch written on (T, D) with no shard axis
+    (``tests/moe_dispatch_2d.py``) bit for bit: outputs, aux loss and the
+    gradients of x and of every weight."""
+    from moe_dispatch_2d import grads, moe_2d
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import ctx as tctx
+    _, tcfg, p, x = _layer_inputs(case)
+    cfg = dataclasses.replace(tcfg, dtype=dtype)
+    tp = {k: _t(v).to(torch.float32 if k == "router" else dtype)
+          for k, v in p.items()}
+    want = grads(moe_2d, cfg, tp, _t(x).to(dtype))
+    with tctx.use_mesh(make_test_mesh(1, 1)):
+        on_mesh = grads(tmoe.moe_ffn, cfg, tp, _t(x).to(dtype))
+    for got in (grads(tmoe.moe_ffn_reference, cfg, tp, _t(x).to(dtype)),
+                on_mesh):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert all(torch.equal(got[2][n], g) for n, g in want[2].items())
 
 
 # ------------------------------------------------------------- the models
