@@ -220,6 +220,13 @@ One JSON line per phase:
    S = 128; xlstm one mLSTM and one sLSTM block at S = 200, which the
    kernels pad, its mLSTM forward and backward launches each on its
    split-TF32 kernel) within 1e-4;
+21d. dry_run — the dry run (``repro_torch.launch.dryrun``) against the
+   train phases: each phase's step traced on meta tensors on a (1, 1)
+   mesh by a process of its own (no card visible, lowest priority,
+   started after the kernel phases, ``--dry-run-counts``), its predicted peak within 10% of
+   the phase's ``max_memory_allocated``, its launches per step by source
+   equal to the phase's, its counted FLOPs per step and over the median
+   step; then dry_run_cell, the record of qwen3_4b x train_4k x 16x16;
 22. live_recovery, live_colocated — ``record_live_recovery`` and
    ``record_live_colocated`` on the card (smoke config): the real trainer
    loses a host, restores a committed checkpoint and re-meshes (ordered
@@ -262,14 +269,14 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM HBM3 rate (NVIDIA data sheet), bytes per second
-HBM_BYTES_PER_S = 3.35e12
-#: H100 SXM dense peaks (NVIDIA data sheet), operations per second: bf16
-#: on the tensor cores, float32 on the CUDA cores, and "tf32" on the
-#: tensor cores (494.7 TFLOP/s: the data sheet's 989.4 with sparsity,
-#: halved), where the float32 attention backward runs three TF32 products
-#: for each float32 one
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 494.7e12}
+# The H100's memory rate and peaks (HBM_BYTES_PER_S, PEAK_FLOPS) and the
+# kernels' work formulas live in the package, where the dry run's meta
+# route reads the same count (fails outside a checkout).
+from repro_torch.kernels.work import (HBM_BYTES_PER_S,  # noqa: E402
+                                      PEAK_FLOPS, mlstm_bwd_stored_bytes,
+                                      mlstm_bwd_work, mlstm_work,
+                                      visible_pairs)
+from repro_torch.kernels.work import bound_ms as attn_bound_ms  # noqa: E402
 #: kernel-vs-plain tolerance on the card, absolute, per dtype: bfloat16
 #: outputs are rounded once to bfloat16 (2^-8 relative on values of
 #: order 1); float32 differ only by the order of the float32 sums.  The
@@ -1294,20 +1301,8 @@ def sdpa(q, k, v, **kw):
                                                   **kw)
 
 
-def attn_bound_ms(n_bytes: int, flops: int, dtype: str):
-    """(bound ms, "bytes" or "operations")."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through, per flat row."""
-    i = sum(min(sk, q + 1 if causal else sk)
-            - (max(0, q - window + 1) if window > 0 else 0)
-            for q in range(sq))
-    return max(i, 0)
 
 
 def _dname(torch, dt) -> str:
@@ -1620,16 +1615,6 @@ def phase_rglru_scan(torch, np, dev):
     return main[0]
 
 
-def mlstm_work(bh: int, s: int, hd: int, elt: int, carry_in: bool):
-    """(bytes, FLOPs) of one chunkwise mLSTM call: q, k, v read and h
-    written in the model dtype, the gates read, the final C and n
-    written (and the initial ones read); 4 hd^2 + 4 L hd FLOPs per
-    token and head (q C and the C update, the L x L scores and S v)."""
-    from repro_torch.kernels.mlstm_kernel import CHUNK
-    carry = 4 * bh * (hd * hd + hd)
-    n_bytes = (elt * 4 * bh * s * hd + 4 * 2 * bh * s
-               + carry * (2 if carry_in else 1))
-    return n_bytes, bh * s * (4 * hd * hd + 4 * CHUNK * hd)
 
 
 def _mlstm_first_design(torch, mk, args):
@@ -1837,34 +1822,8 @@ def phase_rglru_scan_bwd(torch, np, dev):
     return main[0]
 
 
-def mlstm_bwd_work(bh: int, s: int, hd: int, elt: int, carry_in: bool,
-                   final: bool):
-    """(bytes, FLOPs) of one mLSTM backward call: q, k, v and dh read and
-    dq, dk, dv written in the model dtype, the gates read and their
-    gradients written, the initial carry read and its gradient written
-    where given, the final carry's gradient read where given; about
-    10 hd^2 + 10 L hd FLOPs per token and head."""
-    from repro_torch.kernels.mlstm_kernel import CHUNK
-    carry = 4 * bh * (hd * hd + hd)
-    n_bytes = (elt * 7 * bh * s * hd + 4 * 4 * bh * s
-               + carry * ((2 if carry_in else 1) + (1 if final else 0)))
-    return n_bytes, bh * s * (10 * hd * hd + 10 * CHUNK * hd)
 
 
-def mlstm_bwd_stored_bytes(bh: int, s: int, hd: int, source: str) -> int:
-    """Bytes a backward design writes to its workspace and reads back
-    once: the tensor-core designs' dC' of every chunk (bf16 in the bf16
-    design, float32 in the float32 one) and u, y and the chunk-internal dk
-    in float32; the first design's chunk-start states in float32
-    (overwritten by dC' and read again)."""
-    from repro_torch.kernels import mlstm_kernel as mk
-    nc = -(-s // mk.CHUNK)
-    rows = 3 * 4 * bh * nc * mk.CHUNK * hd
-    if source == mk.BWD_SM90:
-        return 2 * (2 * bh * nc * hd * hd + rows)
-    if source == mk.BWD_TF32X3:
-        return 2 * (4 * bh * nc * hd * hd + rows)
-    return 2 * 4 * bh * nc * hd * hd
 
 
 #: the mLSTM backward's outputs, in the order the wrapper returns them
@@ -2093,6 +2052,21 @@ def _zero_kernel_counts():
         w.launches = 0
     for name in BY_SOURCE:
         _serving_wrappers()[name].launches_by_source = {}
+
+
+def _launches_by_source() -> dict:
+    """Every model kernel's launching calls by source since the counts
+    were last set to 0, the kernels of one source under its name."""
+    from repro_torch.kernels import decode_attention, rglru_scan
+    wrappers = _serving_wrappers()
+    out = {}
+    for name in BY_SOURCE:
+        out.update(wrappers[name].launches_by_source)
+    for name, src in (("decode_attention", decode_attention.SOURCE),
+                      ("rglru_scan", rglru_scan.SOURCE),
+                      ("rglru_scan_bwd", rglru_scan.BWD_SOURCE)):
+        out[src] = wrappers[name].launches
+    return {k: n for k, n in sorted(out.items()) if n}
 
 
 def _by_source(name: str = "flash_attention_bwd") -> dict:
@@ -2988,6 +2962,7 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
             steps.append({"step": step, "wall_s": wall, "loss": loss,
                           "grad_norm": gnorm, "lr": float(metrics["lr"]),
                           "launches": counts})
+            step_sources = _launches_by_source()
         peak = torch.cuda.max_memory_allocated()
         # one profiled step: the card's idle share and the top operations
         data = tr.data.batch(warm + timed)
@@ -3051,6 +3026,9 @@ def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
          profiled_step_device_ms_by_op={k[:80]: us / 1e3 for k, us in top},
          profiled_step_device_ms_by_class=by_class,
          finite_gradient_leaves=n_leaves)
+    TRAIN_RUNS[phase] = {"arch": arch, "n_layers": cfg.n_layers,
+                         "peak_memory_bytes": peak, "step_s_median": med,
+                         "launches_by_source": step_sources}
     return {k: v * timed for k, v in want.items()}
 
 
@@ -3275,6 +3253,126 @@ def phase_live_colocated(torch, dev):
 
 
 #: the kernel phases that ``--phases`` runs alone, after device and build
+#: each train phase's record, by phase (``phase_train`` fills it): the
+#: arch, its layers, the peak of ``torch.cuda.max_memory_allocated``, the
+#: median step time and one step's launches by source
+TRAIN_RUNS: dict = {}
+#: the dry run's predicted peak against the measured one, relative
+DRY_RUN_PEAK_TOL = 0.10
+#: the dry_run phase's most seconds (its counts are made by a process of
+#: their own at the lowest priority, started after the kernel phases,
+#: whose host-timed work it would share the cores with, while the serve
+#: and train phases run)
+DRY_RUN_PHASE_S = 30.0
+#: the production cell whose record the dry_run phase prints
+DRY_RUN_CELL = ("qwen3_4b", "train_4k", False)
+
+
+def train_phases() -> list:
+    """(phase, spec) of every train phase, in the order ``main`` runs
+    them; spec as ``TRAIN``."""
+    return [("train", TRAIN)] + [(f"train_{fam}", spec) for fam, spec
+                                 in TRAIN_FAMILIES + TRAIN_RECURRENT]
+
+
+def dry_run_counts(out_path: str) -> None:
+    """The dry run's counts for the dry_run phase, written to
+    ``out_path`` as JSON: each train phase's step (its arch at its cut
+    depth, its batch and sequence, bf16, remat, one microbatch) traced on
+    meta tensors on a (1, 1) mesh by ``repro_torch.launch.dryrun``, and
+    the record of ``DRY_RUN_CELL``.  Needs no card; runs at the lowest
+    priority on one thread."""
+    import dataclasses
+
+    import torch
+    os.nice(19)
+    torch.set_num_threads(1)
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.perf_counter()
+    out = {"train": {}}
+    for phase, (arch, batch, seq, _warm, _timed, n_layers) in train_phases():
+        cfg = configs.get(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        t1 = time.perf_counter()
+        rec = dryrun.count_cell(
+            cfg, shapes.ShapeSpec(f"train_{seq}", "train", seq, batch),
+            make_test_mesh(1, 1), arch=arch, n_microbatch=1)
+        out["train"][phase] = dict(rec, count_s=time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    out["cell"] = dict(dryrun.lower_cell(*DRY_RUN_CELL),
+                       count_s=time.perf_counter() - t1)
+    out["seconds"] = time.perf_counter() - t0
+    out["cpu_s"] = time.process_time()
+    pathlib.Path(out_path).write_text(json.dumps(out))
+
+
+def start_dry_run_counts():
+    """Starts :func:`dry_run_counts` in a process of its own with no card
+    visible; returns (the process, its output path).  The process is
+    killed at exit if it still runs."""
+    import atexit
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="dry_run_")
+    os.close(fd)
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dry-run-counts",
+         path], env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.DEVNULL)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path
+
+
+def phase_dry_run(smi: str, worker, path: str) -> None:
+    """The dry run (``repro_torch.launch.dryrun``) against the train
+    phases: each phase's predicted peak within ``DRY_RUN_PEAK_TOL`` of its
+    measured ``max_memory_allocated``, its kernel launches per step by
+    source equal to the phase's, its counted FLOPs per step over the
+    phase's median step; then the record of ``DRY_RUN_CELL``.  Waits for
+    the counts' process; at most ``DRY_RUN_PHASE_S`` seconds."""
+    t0 = time.perf_counter()
+    rc = worker.wait(timeout=DRY_RUN_PHASE_S)
+    if rc != 0:
+        raise AssertionError(f"dry_run: the counts' process exited {rc}")
+    counts = json.loads(pathlib.Path(path).read_text())
+    os.unlink(path)
+    rows = []
+    for phase, run in TRAIN_RUNS.items():
+        rec = counts["train"][phase]
+        pred, meas = rec["peak_bytes"], run["peak_memory_bytes"]
+        launches = {src: r["launches"] for src, r in rec["kernels"].items()}
+        if abs(pred / meas - 1) > DRY_RUN_PEAK_TOL:
+            raise AssertionError(f"dry_run {phase}: predicted peak {pred}, "
+                                 f"measured {meas}")
+        if launches != run["launches_by_source"]:
+            raise AssertionError(f"dry_run {phase}: launches per step "
+                                 f"{launches}, the phase's "
+                                 f"{run['launches_by_source']}")
+        rows.append({
+            "phase": phase, "arch": run["arch"], "n_layers": run["n_layers"],
+            "predicted_peak_bytes": pred, "measured_peak_bytes": meas,
+            "peak_rel_err": pred / meas - 1,
+            "argument_bytes": rec["memory"]["argument_bytes"],
+            "launches_per_step": launches,
+            "flops_per_step": rec["flops_per_chip"],
+            "products_per_step": rec["products_per_chip"],
+            "step_s_median": run["step_s_median"],
+            "counted_flops_per_s": rec["flops_per_chip"]
+            / run["step_s_median"],
+            "count_s": rec["count_s"]})
+    wall = time.perf_counter() - t0
+    emit("dry_run", card=smi, peak_tolerance=DRY_RUN_PEAK_TOL, phases=rows,
+         counts_process_s=counts["seconds"],
+         counts_process_cpu_s=counts["cpu_s"], phase_s=wall)
+    emit("dry_run_cell", card=smi, **counts["cell"])
+    if wall > DRY_RUN_PHASE_S:
+        raise AssertionError(f"dry_run: {wall:.1f} s, over "
+                             f"{DRY_RUN_PHASE_S} s")
+
+
 KERNEL_PHASES = {"flash_attention": phase_flash_attention,
                  "flash_attention_bwd": phase_flash_attention_bwd,
                  "decode_attention": phase_decode_attention,
@@ -3291,7 +3389,13 @@ def main(argv=None) -> int:
                          f"{', '.join(KERNEL_PHASES)}) after device and "
                          "build, each held to its plain version and "
                          "timed; prints no kernels line and no ok line")
+    ap.add_argument("--dry-run-counts", metavar="PATH", default=None,
+                    help="write the dry_run phase's counts to PATH and "
+                         "exit (no card needed; main starts this itself)")
     args = ap.parse_args(argv)
+    if args.dry_run_counts:
+        dry_run_counts(args.dry_run_counts)
+        return 0
     unknown = [p for p in args.phases if p not in KERNEL_PHASES]
     if unknown:
         ap.error(f"unknown phases {unknown}")
@@ -3305,12 +3409,13 @@ def main(argv=None) -> int:
     import repro_torch.sim  # noqa: F401  (fails outside a checkout)
 
     dev = torch.device("cuda")
-    phase_device(torch, card)
-    phase_build()
+    _, smi = phase_device(torch, card)
     if args.phases:
+        phase_build()
         for name in args.phases:
             KERNEL_PHASES[name](torch, np, dev)
         return 0
+    phase_build()
     floor = phase_launch_floor(torch, dev)
     ms = phase_minskew(torch, np, dev, floor)
     hr = phase_hub_route(torch, np, dev, floor)
@@ -3327,6 +3432,7 @@ def main(argv=None) -> int:
     rgb = phase_rglru_scan_bwd(torch, np, dev)
     ml = phase_mlstm_chunkwise(torch, np, dev)
     mlb = phase_mlstm_chunkwise_bwd(torch, np, dev)
+    dry_worker, dry_path = start_dry_run_counts()
     by_path = {"serve": phase_serve(torch, np, dev)}
     by_path.update(phase_serve_parity(
         torch, np, dev, mesh_cases=("tp_attention", "sp_decode")))
@@ -3356,6 +3462,7 @@ def main(argv=None) -> int:
         arch, pspec, overrides = parity[fam]
         by_path[f"train_parity_{fam}"] = phase_train_parity(
             torch, np, dev, pspec, arch, overrides, f"train_parity_{fam}")
+    phase_dry_run(smi, dry_worker, dry_path)
     phase_live_recovery(torch, dev)
     phase_live_colocated(torch, dev)
     paths = {k: {"main_path": launches[k], "sweep": sweep_launches[k],

@@ -211,8 +211,14 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled, a driver-API function, through the runtime's
-// entry-point query: the library needs no -lcuda.
+// entry-point query: the library needs no -lcuda.  The driver's call needs
+// a context current in the calling thread, which a thread whose first CUDA
+// work is a launcher's has not got (autograd's device thread, its tensors
+// from the allocator's cache): cudaFree(0), once in each thread, makes the
+// runtime bind the primary context to it.
 static inline EncodeTiled encode_fn() {
+  static thread_local bool bound = (cudaFree(0), true);
+  (void)bound;
   static EncodeTiled fn = nullptr;
   if (!fn) {
     void* p = nullptr;

@@ -16,7 +16,8 @@ the card.
 
 On a CPU tensor the wrapper computes the plain version
 (:func:`repro_torch.kernels.ref.decode_attention_plain`); on a CUDA
-tensor it launches the kernels or raises.  Both paths check dtypes and
+tensor it launches the kernels or raises; on a meta tensor it takes the
+meta route (:mod:`repro_torch.kernels.work`).  Both paths check dtypes and
 shapes first.  ``decode_attention.launches`` counts calls that launched
 (each launches the split and the combine kernel once).  Decode is not
 trained and the kernels have no backward: on a CUDA tensor under grad
@@ -30,13 +31,14 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.flash_attention import DTYPES, check_head_dim
 from repro_torch.kernels.ref import decode_attention_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: (H / Hkv) * hd per block: SPLIT_GROUPS * 8 * SPLIT_THREADS in the source
+SOURCE = "decode_attention.cu"
 MAX_GROUP_OUT = 8192
 TILE = 32                     # positions per tile of a split block
 MAX_CHUNK = 2048
@@ -125,7 +127,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _launch(q, k_cache, v_cache, lengths):
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     b, h, hd = q.shape
     _, s, hkv, _ = k_cache.shape
@@ -148,6 +150,12 @@ def _launch(q, k_cache, v_cache, lengths):
     acc_at = -(-2 * n // 4) * 4
     scratch = torch.empty(acc_at + n * hd, dtype=torch.float32,
                           device=q.device)
+    if q.device.type == "meta":
+        # the meta route: the lengths' values are not known here, so the
+        # work counts every cache position of every row
+        work.record(SOURCE, work.decode_work(b, h, hkv, hd, q.element_size(),
+                                             b * s))
+        return out
     part = scratch.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -63,7 +63,10 @@ On a CPU tensor the wrappers compute the plain versions
 (:func:`repro_torch.kernels.ref.attention_flat_plain`,
 :func:`repro_torch.kernels.ref.attention_flat_bwd_plain`); on a CUDA
 tensor they launch a kernel or raise.  Both paths check dtypes and
-shapes first.  ``flash_attention_flat.launches`` counts the launches of
+shapes first.  On a meta tensor they take the meta route
+(:mod:`repro_torch.kernels.work`): the allocations of the CUDA route,
+the launch replaced by :func:`repro_torch.kernels.work.record`.
+``flash_attention_flat.launches`` counts the launches of
 either forward kernel from either entry point,
 ``flash_attention_bwd.launches`` the calls that launched either
 backward; ``launches_by_source`` on each splits them by source.
@@ -76,7 +79,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.ref import (attention_flat_bwd_plain,
                                      attention_flat_plain)
 
@@ -276,7 +279,7 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_flat_plain(q, k, v, causal=causal, window=window)
-    _on_cuda(q)
+    _on_cuda(q, meta=True)
     if _build.grad_wanted(q, k, v):
         raise NotImplementedError(
             "flash_attention_flat has no gradient on the card; call the "
@@ -336,18 +339,40 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
-    """The card's streaming multiprocessors (the head split's rule)."""
+    """The card's streaming multiprocessors (the head split's rule); on
+    the meta device, the H100's."""
+    if device.type == "meta":
+        return work.H100_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _on_cuda(q):
-    if q.device.type != "cuda":
+def _meta_route(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` takes the meta route: ``t`` is on the meta
+    device."""
+    return t.device.type == "meta"
+
+
+def _on_cuda(q, meta: bool = False):
+    """Raise unless ``q`` is on the card (or, where ``meta``, on the
+    meta device, whose route launches nothing)."""
+    if q.device.type != "cuda" and not (meta and _meta_route(q)):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def _meta_fwd(source, q, k, out, causal, window):
+    """The meta route of a forward call that would launch: the output is
+    allocated; the call's work goes to the active tallies."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    work.record(source, work.attn_fwd_work(b, h, hkv, sq, sk, hd,
+                                           q.element_size(), causal,
+                                           window))
+    return out
 
 
 def _launch_bf16(q, k, v, out, causal, window):
     """The tensor-core kernel on (B, S, H, hd) views of aligned tensors."""
-    _on_cuda(q)
+    _on_cuda(q, meta=True)
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
@@ -357,6 +382,8 @@ def _launch_bf16(q, k, v, out, causal, window):
         return out
     if sk == 0:                         # no key is visible: zeros
         return out.zero_()
+    if _meta_route(q):
+        return _meta_fwd(FWD_SM90, q, k, out, causal, window)
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -375,7 +402,7 @@ def _launch_bf16(q, k, v, out, causal, window):
 def _launch_tf32x3(q, k, v, out, causal, window):
     """``csrc/flash_attention_tf32x3.cu`` on (B, S, H, hd) views of
     aligned float32 tensors, the output written through its strides."""
-    _on_cuda(q)
+    _on_cuda(q, meta=True)
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if -(-sq // BQ) > MAX_GRID_YZ or b * h > 2 ** 31 - 1:
@@ -383,6 +410,8 @@ def _launch_tf32x3(q, k, v, out, causal, window):
                          f"the launch grid")
     if sq == 0 or b == 0:
         return out
+    if _meta_route(q):
+        return _meta_fwd(FWD_TF32X3, q, k, out, causal, window)
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     launch = _lib_tf32x3()              # built at first use, or raises
     with torch.cuda.device(q.device):
@@ -477,7 +506,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through the tensors' strides (a tensor that the kernel's 16-byte
     copies cannot read in place is first copied, as the forward does):
     ``csrc/flash_attention_bwd_sm90.cu`` for bfloat16,
-    ``csrc/flash_attention_bwd_tf32x3.cu`` for float32; or raise."""
+    ``csrc/flash_attention_bwd_tf32x3.cu`` for float32; or raise.  On
+    meta tensors, the same allocations and no launch (the meta route)."""
     _check_bshd(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -495,7 +525,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (dq.reshape(b, h, sq, hd).transpose(1, 2),
                 dk.reshape(b, hkv, sk, hd).transpose(1, 2),
                 dv.reshape(b, hkv, sk, hd).transpose(1, 2))
-    _on_cuda(q)
+    _on_cuda(q, meta=True)
     if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"flash_attention_bwd: B={b}, H={h} exceed the "
                          f"launch grid")
@@ -507,7 +537,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     source = bwd_source(q.dtype, hd)
     launch = _bwd_sm90 if source == BWD_SM90 else _bwd_tf32x3
     parts = launch(q, k, v, o, do, dq, dk, dv, causal, window)
-    if parts:
+    if parts and _meta_route(q):
+        work.record(source, work.attn_bwd_work(b, h, hkv, sq, sk, hd,
+                                               q.element_size(), causal,
+                                               window))
+    elif parts:
         flash_attention_bwd.launches += 1
         flash_attention_bwd.source = source
         flash_attention_bwd.head_parts = parts
@@ -536,6 +570,8 @@ def _bwd_sm90(q, k, v, o, do, dq, dk, dv, causal, window,
         parts = bwd_head_parts(b, h, hkv, sk, hd, _sm_count(q.device))
     ws = torch.empty((2 * parts * b * sk * hkv * hd if parts > 1 else 0,),
                      dtype=torch.float32, device=q.device)
+    if _meta_route(q):         # the meta route: no launch
+        return parts
     strides = [st for t in (q, k, v, o, do, dq, dk, dv)
                for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
@@ -570,6 +606,8 @@ def _bwd_tf32x3(q, k, v, o, do, dq, dk, dv, causal, window) -> int:
     parts = bwd_head_parts(b, h, hkv, sk, hd, _sm_count(q.device))
     ws = torch.empty((2 * parts * b * sk * hkv * hd if parts > 1 else 0,),
                      dtype=torch.float32, device=q.device)
+    if _meta_route(q):         # the meta route: no launch
+        return parts
     strides = [st for t in (q, k, v, o, do) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -71,8 +71,9 @@ On a CPU tensor the wrappers compute the plain versions at the kernel's
 chunk (:func:`mlstm_flat_plain`, over
 :func:`repro_torch.kernels.ref.mlstm_chunkwise_plain`, through which
 autograd runs; and :func:`repro_torch.kernels.ref.mlstm_chunkwise_bwd_plain`);
-on a CUDA tensor they launch a kernel or raise.  Both paths check dtypes
-and shapes first.  ``mlstm_chunkwise.launches`` and
+on a CUDA tensor they launch a kernel or raise; on a meta tensor they
+take the meta route (:mod:`repro_torch.kernels.work`: the CUDA route's
+allocations, no launch).  Both paths check dtypes and shapes first.  ``mlstm_chunkwise.launches`` and
 ``mlstm_chunkwise_bwd.launches`` count launches,
 ``mlstm_chunkwise.source`` and ``mlstm_chunkwise_bwd.source`` name the
 source of the last one, and ``.launches_by_source`` on each counts its
@@ -87,7 +88,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.ref import (MLSTM_KERNEL_CHUNK, PAD_GATE,
                                      mlstm_chunkwise_bwd_plain,
                                      mlstm_chunkwise_plain, pad_tail)
@@ -296,7 +297,7 @@ def mlstm_flat_plain(q, k, v, i_raw, f_raw, c0=None, n0=None):
 
 def _launch(q, k, v, i_raw, f_raw, c0, n0, s):
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"mlstm_chunkwise: no kernel for device {dev}")
     bh, sp, hd = q.shape
     if bh > 65535:
@@ -317,6 +318,10 @@ def _launch(q, k, v, i_raw, f_raw, c0, n0, s):
         raise RuntimeError(
             f"mlstm_chunkwise kernel launch failed ({source}): CUDA error "
             f"{err}")
+    if dev.type == "meta":
+        work.record(source, work.mlstm_work(bh, s, hd, q.element_size(),
+                                            c0 is not None))
+        return h[:, :s], (c, n)
     mlstm_chunkwise.launches += 1
     mlstm_chunkwise.source = source
     by_source = mlstm_chunkwise.launches_by_source
@@ -338,6 +343,8 @@ def _fwd_cuda_cores(q, k, v, i_raw, f_raw, c0, n0, c, n, h) -> int:
         n0 = torch.zeros((bh, hd), **f32)
     sc = torch.empty((bh, sp // CHUNK, CHUNK, CHUNK), **f32)
     den = torch.empty((bh, sp // CHUNK, CHUNK), **f32)
+    if q.device.type == "meta":         # the meta route: no launch
+        return 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         return _lib()(*(_ptr(t) for t in (q, k, v, i_raw, f_raw, sc, den, n0,
@@ -359,6 +366,8 @@ def _fwd_tensor_cores(source, q, k, v, i_raw, f_raw, c0, n0, c, n,
     sc = torch.empty((bh, nc, CHUNK, CHUNK), dtype=q.dtype, device=q.device)
     gates = torch.empty((bh, nc, 4, CHUNK), **f32)
     ksum = torch.empty((bh, nc, hd), **f32)
+    if q.device.type == "meta":         # the meta route: no launch
+        return 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         return _lib_fwd_tensor_cores(source)(
@@ -423,7 +432,7 @@ def mlstm_chunkwise_bwd(q, k, v, i_raw, f_raw, c0, n0, dh, dc=None,
     if q.device.type == "cpu":
         return mlstm_chunkwise_bwd_plain(q, k, v, i_raw, f_raw, c0, n0, dh,
                                          dc, dn, chunk=CHUNK)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"mlstm_chunkwise_bwd: no kernel for device "
                          f"{q.device}")
     if bh > 65535:
@@ -457,6 +466,11 @@ def mlstm_chunkwise_bwd(q, k, v, i_raw, f_raw, c0, n0, dh, dc=None,
     if err != 0:
         raise RuntimeError(f"mlstm_chunkwise_bwd kernel launch failed "
                            f"({source}): CUDA error {err}")
+    if dev.type == "meta":
+        work.record(source, work.mlstm_bwd_work(
+            bh, s, hd, q.element_size(), c0 is not None, dc is not None))
+        return ((dq[:, :s], dk[:, :s], dv[:, :s]), (di[:, :s], df[:, :s]),
+                (dc0, dn0))
     mlstm_chunkwise_bwd.launches += 1
     mlstm_chunkwise_bwd.source = source
     by_source = mlstm_chunkwise_bwd.launches_by_source
@@ -475,6 +489,10 @@ def _bwd_cuda_cores(q, k, v, dh, i_raw, f_raw, c0, n0, dc, dn, dq, dk, dv,
     either dtype, into the given outputs; returns its error code.  Its
     float32 workspace is allocated here for the call."""
     bh, sp, hd = q.shape
+    if q.device.type == "meta":         # the meta route: no launch
+        torch.empty(work.mlstm_bwd_ws_bytes(BWD_CUDA_CORES, bh, sp, hd) // 4,
+                    dtype=torch.float32, device=q.device)
+        return 0
     fn, ws_floats = _lib_bwd()
     ws = torch.empty(ws_floats(bh, sp, hd), dtype=torch.float32,
                      device=q.device)
@@ -494,6 +512,10 @@ def _bwd_tensor_cores(source, q, k, v, dh, i_raw, f_raw, c0, n0, dc, dn, dq,
     Its workspace (bytes, in aligned parts) is allocated here for the
     call."""
     bh, sp, hd = q.shape
+    if q.device.type == "meta":         # the meta route: no launch
+        torch.empty(work.mlstm_bwd_ws_bytes(source, bh, sp, hd),
+                    dtype=torch.uint8, device=q.device)
+        return 0
     fn, ws_bytes = _lib_bwd_tensor_cores(source)
     ws = torch.empty(ws_bytes(bh, sp, hd), dtype=torch.uint8,
                      device=q.device)

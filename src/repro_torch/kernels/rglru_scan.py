@@ -30,8 +30,9 @@ requires grad; otherwise (serving) nothing is saved.
 On a CPU tensor the wrappers compute the plain versions
 (:func:`repro_torch.kernels.ref.rglru_plain`, through which autograd
 runs, and :func:`repro_torch.kernels.ref.rglru_bwd_plain`); on a CUDA
-tensor they launch the kernel or raise.  Both paths check dtypes and
-shapes first.  ``rglru_scan.launches`` and ``rglru_scan_bwd.launches``
+tensor they launch the kernel or raise; on a meta tensor they take the
+meta route (:mod:`repro_torch.kernels.work`: the CUDA route's
+allocations, no launch).  Both paths check dtypes and shapes first.  ``rglru_scan.launches`` and ``rglru_scan_bwd.launches``
 count launches.
 """
 from __future__ import annotations
@@ -42,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.ref import rglru_bwd_plain, rglru_plain
 
 #: time steps per chunk (T_c): rows of a block's staged tile
@@ -54,6 +55,8 @@ TILE_W = 32
 #: ``CHUNK`` and ``WARPS`` that ``csrc/rglru_scan_bwd.cu`` is built for
 BWD_CHUNK = 256
 BWD_WARPS = 8
+SOURCE = "rglru_scan.cu"
+BWD_SOURCE = "rglru_scan_bwd.cu"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -145,11 +148,16 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
 
 
 def _launch(log_a, b, h0):
-    if log_a.device.type != "cuda":
+    if log_a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan: no kernel for device {log_a.device}")
     bsz, s, w = log_a.shape
     out = torch.empty_like(log_a)
     if out.numel() == 0:
+        return out
+    if log_a.device.type == "meta":     # the meta route: no launch
+        torch.empty(work.rglru_ws_bytes(bsz, s, w, CHUNK, TILE_W),
+                    dtype=torch.uint8, device=log_a.device)
+        work.record(SOURCE, work.rglru_work(bsz, s, w, h0 is not None))
         return out
     launch, ws_bytes = _lib()
     n_ws = ws_bytes(bsz, s, w, CHUNK)
@@ -201,7 +209,7 @@ def rglru_scan_bwd(log_a: torch.Tensor, h: torch.Tensor,
     if log_a.device.type == "cpu":
         dla, db, dh0 = rglru_bwd_plain(log_a, h, h0, dh)
         return dla, db, dh0 if want_dh0 else None
-    if log_a.device.type != "cuda":
+    if log_a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan_bwd: no kernel for device "
                          f"{log_a.device}")
     bsz, s, w = log_a.shape
@@ -211,6 +219,12 @@ def rglru_scan_bwd(log_a: torch.Tensor, h: torch.Tensor,
     if dla.numel() == 0:
         if dh0 is not None:
             dh0.zero_()
+        return dla, db, dh0
+    if log_a.device.type == "meta":     # the meta route: no launch
+        torch.empty(work.rglru_bwd_ws_bytes(bsz, s, w, BWD_CHUNK, TILE_W),
+                    dtype=torch.uint8, device=log_a.device)
+        work.record(BWD_SOURCE, work.rglru_bwd_work(bsz, s, w,
+                                                    h0 is not None))
         return dla, db, dh0
     launch, ws_bytes = _lib_bwd()
     n_ws = ws_bytes(bsz, s, w, BWD_CHUNK)

@@ -6,9 +6,9 @@ sizes of any shape over that one device.  The mesh-aware blocks
 ``sp_decode``) compute under it what the JAX package's blocks compute on
 a real mesh of that shape: a collective becomes a reduction or a
 permutation over a shard axis on the one device, and nothing is placed
-on another device.  ``make_production_mesh`` (256 or 512 devices) still
-raises: whether a logical mesh of that size is ever entered is left to
-the dry run (ROADMAP A12.2).
+on another device.  ``make_production_mesh`` gives the (16, 16) and
+(2, 16, 16) meshes of the dry run (``repro_torch.launch.dryrun``), which
+counts one chip's program of them on meta tensors.
 """
 from __future__ import annotations
 
@@ -45,11 +45,14 @@ class LogicalMesh:
         return np.arange(math.prod(self.sizes)).reshape(self.sizes)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    raise NotImplementedError(
-        f"make_production_mesh: a {shape} mesh of {math.prod(shape)} "
-        f"devices belongs to the dry run, not ported (ROADMAP A12.2)")
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """The production mesh, logical: (16, 16) over ("data", "model"),
+    or (2, 16, 16) over ("pod", "data", "model"), the JAX package's
+    axes.  The dry run (``repro_torch.launch.dryrun``) counts one chip's
+    program of it; nothing runs on 256 or 512 devices."""
+    if multi_pod:
+        return LogicalMesh(("pod", "data", "model"), (2, 16, 16))
+    return LogicalMesh(("data", "model"), (16, 16))
 
 
 def make_test_mesh(data: int = 1, model: int = 1, pod: int = 0):

@@ -39,6 +39,23 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
+# Gradient-accumulation microbatch count per arch for train_4k (the JAX
+# package's choice, so that per-layer saved activations fit a chip's
+# memory).
+MICROBATCH: Dict[str, int] = {
+    "phi3_medium_14b": 4,
+    "glm4_9b": 4,
+    "deepseek_coder_33b": 8,
+    "qwen3_4b": 2,
+    "seamless_m4t_medium": 1,
+    "xlstm_1_3b": 2,
+    "moonshot_v1_16b_a3b": 2,
+    "olmoe_1b_7b": 1,
+    "pixtral_12b": 4,
+    "recurrentgemma_9b": 4,
+}
+
+
 def applicable(cfg: ModelConfig, shape: ShapeSpec) -> Optional[str]:
     """None if the (arch, shape) cell runs; else a skip reason (N/A cell)."""
     if shape.name == "long_500k" and not registry.sub_quadratic(cfg):

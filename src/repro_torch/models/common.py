@@ -245,21 +245,42 @@ def unstack(tree: dict, n: int) -> list:
     return out
 
 
+#: the remat policies, as the JAX package names them: "nothing" saves no
+#: intermediate (``nothing_saveable``); "dots" saves the outputs of the
+#: products with no batch dimension (``dots_with_no_batch_dims_saveable``)
+REMAT_POLICIES = ("nothing", "dots")
+
+
+def _dots_contexts():
+    """Selective checkpointing's contexts for the policy "dots": the
+    outputs of ``aten.mm`` and ``aten.addmm`` (``x @ w`` of a projection,
+    whatever the leading dims of ``x``) are kept from the forward; every
+    other operation, ``bmm`` (the experts' batched products) and the
+    attention and recurrence kernels included, is recomputed."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    aten = torch.ops.aten
+    return create_selective_checkpoint_contexts(
+        [aten.mm.default, aten.addmm.default])
+
+
 def maybe_remat(cfg: "ModelConfig", fn):
     """``fn`` recomputed in the backward when ``cfg.remat`` and grad mode
-    is on (``torch.utils.checkpoint``, non-reentrant; the JAX package's
-    ``maybe_remat`` with the policy "nothing": no intermediate is saved),
-    else ``fn`` itself.  Only that policy is ported."""
+    is on (``torch.utils.checkpoint``, non-reentrant), else ``fn``
+    itself: the JAX package's ``maybe_remat``.  Under the policy
+    "nothing" no intermediate is saved; under "dots" the products with no
+    batch dimension are (:func:`_dots_contexts`)."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r}, "
+                         f"expected one of {REMAT_POLICIES}")
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not ported; "
-            f"only 'nothing'")
     from torch.utils.checkpoint import checkpoint
 
+    kw = {"context_fn": _dots_contexts} if cfg.remat_policy == "dots" else {}
+
     def remat(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return remat
 
 

@@ -153,9 +153,19 @@ def local_moe(xs: torch.Tensor, p: dict, cfg: ModelConfig, cap: int, *,
     buf = xs.new_zeros((n * rows, d))
     buf.index_copy_(0, flat, xs.repeat_interleave(k, dim=1).view(-1, d))
     buf = buf.view(n, rows, d)[:, :-1].reshape(n, e, cap, d)
-    out = expert_ffn(buf.transpose(0, 1).reshape(e, n * cap, d),
-                     p["w_gate"], p["w_up"], p["w_down"])
-    out = out.view(e, n, cap, d).transpose(0, 1).reshape(n, e * cap, d)
+    xe = buf.transpose(0, 1).reshape(e, n * cap, d)
+    e_w = p["w_gate"].shape[0]
+    if e_w != e:
+        # under parallel.ctx.use_chip only: weights of E / m experts, one
+        # chip's expert shard (the dry run's program), which after the
+        # all-to-all takes the slots of m shards for each of its experts;
+        # this shard's rows stand for them
+        if not pctx.get_chip() or e % e_w:
+            raise ValueError(f"local_moe: weights of {e_w} experts for a "
+                             f"config of {e}")
+        xe = xe.reshape(e_w, -1, d)
+    out = expert_ffn(xe, p["w_gate"], p["w_up"], p["w_down"])
+    out = out.reshape(e, n, cap, d).transpose(0, 1).reshape(n, e * cap, d)
     # a dropped slot reads its shard's zero row appended at e*cap
     out = torch.cat([out, out.new_zeros((n, 1, d))], dim=1).view(-1, d)
     y = (out[flat].view(n, t, k, d).float() * w[..., None]).sum(dim=2)
@@ -193,7 +203,10 @@ def moe_ffn_sharded(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     its own t_loc tokens at ``capacity(t_loc)``; aux is the mean of the
     shards' (``pmean`` over the axes that shard tokens).  ``B % dp !=
     0`` raises ``ValueError``, as ``shard_map`` would.  With one shard
-    this is :func:`moe_ffn_reference` itself."""
+    this is :func:`moe_ffn_reference` itself.  Under
+    ``parallel.ctx.use_chip`` (one chip's program, the dry run's) only
+    the first shard is computed, and its output stands for every
+    shard's."""
     mesh = pctx.get_mesh()
     m = mesh.shape["model"]
     b, s, d = x.shape
@@ -207,6 +220,14 @@ def moe_ffn_sharded(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     bl, sl = b // dp, s // ms
     xs = x.reshape(dp, bl, ms, sl, d).transpose(1, 2).reshape(
         dp * ms, bl * sl, d)
+    if pctx.get_chip():
+        # one chip's program: its own shard, standing for every shard
+        # (the all-gather of the outputs); the dry run counts it
+        y, a = local_moe(xs[:1], p, cfg, capacity(max(bl * sl, 1), cfg),
+                         aux=aux)
+        y = y.expand(dp * ms, bl * sl, d)
+        return y.reshape(dp, ms, bl, sl, d).transpose(1, 2).reshape(
+            b, s, d), a
     y, a = local_moe(xs, p, cfg, capacity(max(bl * sl, 1), cfg), aux=aux)
     return y.view(dp, ms, bl, sl, d).transpose(1, 2).reshape(b, s, d), a
 

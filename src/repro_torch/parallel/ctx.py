@@ -56,6 +56,24 @@ def use_unroll(flag: bool = True):
         set_unroll(prev)
 
 
+def get_chip() -> bool:
+    """One chip's program (the dry run, ``repro_torch.launch.dryrun``):
+    a block that computes a mesh's shards side by side computes only
+    the first, the one this chip holds."""
+    return getattr(_STATE, "chip", False)
+
+
+@contextmanager
+def use_chip():
+    """Runs the block as one chip's program (see :func:`get_chip`)."""
+    prev = get_chip()
+    _STATE.chip = True
+    try:
+        yield
+    finally:
+        _STATE.chip = prev
+
+
 def batch_axes(mesh) -> Tuple[str, ...]:
     """Mesh axes over which the global batch is sharded."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)

@@ -244,19 +244,32 @@ def test_decode_wrapper_rejects(bad, exc):
         decode_attention(**_decode_args(**bad))
 
 
-def test_wrappers_launch_or_raise_off_cpu():
-    """A tensor off the CPU never takes the plain version: a device with
-    no kernel raises instead (here the meta device, which needs no
-    card)."""
+def test_wrappers_launch_or_raise_off_cpu(monkeypatch):
+    """A tensor off the CPU never takes the plain version: on the meta
+    device (which needs no card) the wrappers take the meta route, which
+    allocates the kernel's output, launches nothing, moves no launch
+    counter and tallies one call of the kernel's source."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import work
+
+    def plain(*a, **kw):
+        raise AssertionError("fell back to the plain version")
+    monkeypatch.setattr(fmod, "attention_flat_plain", plain)
+    monkeypatch.setattr(dmod, "decode_attention_plain", plain)
     counts = (flash_attention_flat.launches, decode_attention.launches)
-    meta = {k: v.to("meta") for k, v in _flash_args().items()}
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        flash_attention_flat(**meta)
-    meta = {k: v.to("meta") for k, v in _decode_args().items()}
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        decode_attention(**meta)
+    with work.KernelTally() as tally:
+        meta = {k: v.to("meta") for k, v in _flash_args().items()}
+        out = flash_attention_flat(**meta)
+        assert (out.device.type, out.shape) == ("meta", meta["q"].shape)
+        meta = {k: v.to("meta") for k, v in _decode_args().items()}
+        out = decode_attention(**meta)
+        assert (out.device.type, out.shape) == ("meta", meta["q"].shape)
     assert (flash_attention_flat.launches,
             decode_attention.launches) == counts
+    assert tally.launches() == {
+        fmod.fwd_source(meta["q"].dtype, meta["q"].shape[-1]): 1,
+        dmod.SOURCE: 1}
 
 
 # ------------------------------------- (B, S, H, hd) views read in place

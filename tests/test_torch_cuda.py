@@ -1036,3 +1036,99 @@ def test_hub_one_device_operation_a_call(dev, m, links):
         lambda: hub_route(send, ser, link, ones, lat, ser_ns=ser))
     assert seen and all("hub_lookback_kernel" in k for k in seen), seen
     assert sum(seen.values()) <= 40, seen
+
+
+class _Allocations:
+    """Every operation's tensor results, (name, shape, dtype) in order,
+    while active: the same call on the card and on meta tensors must
+    allocate the same outputs and workspaces."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                outs = out if isinstance(out, (list, tuple)) else [out]
+                seen.extend((func.__name__, tuple(t.shape), t.dtype)
+                            for t in outs if isinstance(t, torch.Tensor))
+                return out
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _route_calls(device, dtype, hd):
+    """One call of each model-path kernel (forward and backward) on
+    tensors of ``device``, seeded; returns {kernel: (allocations, result
+    shapes and dtypes)}."""
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(0)
+
+    def t(*shape, dt=dtype, grad=False):
+        x = torch.randn(*shape, generator=g).to(dt).to(device)
+        return x.requires_grad_(grad)
+    out = {}
+
+    def run(name, fn):
+        with _Allocations() as rec:
+            res = fn()
+        res = res if isinstance(res, (list, tuple)) else [res]
+        flat = [r for x in res for r in (x if isinstance(x, tuple) else [x])]
+        out[name] = (rec.seen, [(tuple(r.shape), r.dtype) for r in flat
+                                if isinstance(r, torch.Tensor)])
+    b, s, h, hkv = 2, 200, 8, 2
+    q, k, v = t(b, s, h, hd, grad=True), t(b, s, hkv, hd, grad=True), \
+        t(b, s, hkv, hd, grad=True)
+    o = ops.flash_attention(q, k, v, causal=True)
+    run("flash_fwd", lambda: ops.flash_attention(q.detach(), k.detach(),
+                                                 v.detach(), causal=True))
+    do = t(b, s, h, hd)
+    run("flash_bwd", lambda: torch.autograd.grad(o, (q, k, v), do,
+                                                 retain_graph=True))
+    lengths = torch.full((b,), s, dtype=torch.int32, device=device)
+    run("decode", lambda: ops.decode_attention(
+        t(b, h, hd), t(b, s, hkv, hd), t(b, s, hkv, hd), lengths))
+    la, bb = (t(b, s, 70, dt=torch.float32, grad=True) for _ in range(2))
+    hs = ops.rglru(la, bb)
+    run("rglru_fwd", lambda: ops.rglru(la.detach(), bb.detach()))
+    run("rglru_bwd", lambda: torch.autograd.grad(hs.sum(), (la, bb)))
+    qm, km, vm = (t(b, s, 2, hd, grad=True) for _ in range(3))
+    ig, fg = (t(b, s, 2, dt=torch.float32, grad=True) for _ in range(2))
+    hm, _ = ops.mlstm(qm, km, vm, ig, fg)
+    run("mlstm_fwd", lambda: ops.mlstm(qm.detach(), km.detach(), vm.detach(),
+                                       ig.detach(), fg.detach()))
+    run("mlstm_bwd", lambda: torch.autograd.grad(
+        hm.float().sum(), (qm, km, vm, ig, fg)))
+    return out
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
+                                      (torch.float32, 64),
+                                      (torch.bfloat16, 256),
+                                      (torch.float32, 256)])
+def test_meta_route_allocates_as_the_card(dev, dtype, hd):
+    """The meta route (``repro_torch.kernels.work``) and the CUDA route
+    of each model-path kernel on the same call: the same operations'
+    results (outputs, workspaces, scratch) in the same shapes and dtypes,
+    and the same results; the meta route moves no launch counter.  hd 256
+    splits the attention backward's heads (a float32 workspace)."""
+    from repro_torch.kernels import flash_attention as fmod
+    card = _route_calls(dev, dtype, hd)
+    before = fmod.flash_attention_flat.launches
+    meta = _route_calls(torch.device("meta"), dtype, hd)
+    assert fmod.flash_attention_flat.launches == before
+    assert card.keys() == meta.keys()
+    for name in card:
+        (got, got_res), (want, want_res) = meta[name], card[name]
+        at = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                  min(len(got), len(want)))
+        assert got == want, (name, at, got[at:at + 3], want[at:at + 3])
+        assert got_res == want_res, name

@@ -267,12 +267,13 @@ class _Launcher:
 @contextlib.contextmanager
 def _no_card(monkeypatch, launcher):
     """The float32 CUDA path with meta tensors in place of CUDA ones: the
-    device check passes, the launcher is ``launcher`` (or the real build,
-    where None), the plain version must not be called, and the launch
-    counters are restored after."""
+    device check passes and the meta route is off, the launcher is
+    ``launcher`` (or the real build, where None), the plain version must
+    not be called, and the launch counters are restored after."""
     def plain(*a, **kw):
         raise AssertionError("fell back to the plain version")
-    monkeypatch.setattr(fa, "_on_cuda", lambda q: None)
+    monkeypatch.setattr(fa, "_on_cuda", lambda q, meta=False: None)
+    monkeypatch.setattr(fa, "_meta_route", lambda t: False)
     monkeypatch.setattr(fa, "attention_flat_plain", plain)
     monkeypatch.setattr(fa.flash_attention_flat, "launches", 0)
     monkeypatch.setattr(fa.flash_attention_flat, "launches_by_source", {})

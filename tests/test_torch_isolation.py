@@ -47,7 +47,9 @@ def test_port_files_exist():
                 "checkpoint/manager.py", "runtime/trainer.py",
                 "parallel/ctx.py", "parallel/sharding.py", "launch/mesh.py",
                 "live/__main__.py",
-                "core/des.py", "core/workloads.py", "launch/shapes.py"):
+                "core/des.py", "core/workloads.py", "launch/shapes.py",
+                "launch/dryrun.py", "launch/costcount.py", "launch/count.py",
+                "kernels/work.py"):
         assert f"repro_torch/{mod}" in names, mod
     for src in ("minskew.cu", "hub_route.cu", "flash_attention.cu",
                 "decode_attention.cu", "rglru_scan.cu", "mlstm_kernel.cu",

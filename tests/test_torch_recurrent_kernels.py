@@ -239,11 +239,17 @@ def test_pad_tail_steps_leave_the_state_unchanged():
 
 def test_recurrent_wrappers_check_inputs():
     """Both paths validate first; a tensor that is not on the CPU takes
-    the kernel path and is refused for its device without CUDA."""
+    the kernel path: on the meta device (no card needed) the meta route,
+    which allocates the kernel's outputs and tallies one call of its
+    source, with no plain version and no launch."""
+    from repro_torch.kernels import mlstm_kernel, rglru_scan as rmod, work
     meta = dict(device="meta")
     la = torch.empty((2, 4, 8), **meta)
-    with pytest.raises(ValueError, match="no kernel"):
-        rglru_scan(la, la)
+    launched = (rmod.rglru_scan.launches,
+                mlstm_kernel.mlstm_chunkwise.launches)
+    with work.KernelTally() as tally:
+        assert rglru_scan(la, la).shape == la.shape
+    assert tally.launches() == {rmod.SOURCE: 1}
     with pytest.raises(TypeError, match="float32"):
         rglru_scan(torch.zeros(2, 4, 8, dtype=torch.float64),
                    torch.zeros(2, 4, 8, dtype=torch.float64))
@@ -252,8 +258,13 @@ def test_recurrent_wrappers_check_inputs():
                    torch.zeros(3, 8))
     q = torch.empty((2, 64, 16), **meta)
     g = torch.empty((2, 64), **meta)
-    with pytest.raises(ValueError, match="no kernel"):
-        mlstm_chunkwise(q, q, q, g, g)
+    with work.KernelTally() as tally:
+        h, (c, n) = mlstm_chunkwise(q, q, q, g, g)
+    assert (h.shape, c.shape, n.shape) == (q.shape, (2, 16, 16), (2, 16))
+    assert tally.launches() == {
+        mlstm_kernel.fwd_source(torch.float32, 16): 1}
+    assert (rmod.rglru_scan.launches,
+            mlstm_kernel.mlstm_chunkwise.launches) == launched
     z = torch.zeros(2, 64, 16)
     with pytest.raises(TypeError, match="i_raw"):
         mlstm_chunkwise(z, z, z, torch.zeros(2, 64, dtype=torch.float64),

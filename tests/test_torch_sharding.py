@@ -54,9 +54,17 @@ def test_make_test_mesh_is_logical_at_any_size():
     assert m.devices.shape == (2, 3)
     p = make_test_mesh(4, 2, pod=2)
     assert p.axis_names == ("pod", "data", "model") and p.devices.size == 16
-    with pytest.raises(NotImplementedError, match="ROADMAP A12.2"):
-        from repro_torch.launch.mesh import make_production_mesh
-        make_production_mesh()
+    # the production meshes: the JAX package's axes and sizes
+    from repro_torch.launch.mesh import make_production_mesh
+    for multi_pod in (False, True):
+        got = make_production_mesh(multi_pod=multi_pod)
+        sizes = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+        assert (got.axis_names, got.sizes) == (axes, sizes)
+        assert got.devices.shape == sizes
+        want = AbstractMesh(sizes, axes)
+        assert (got.axis_names, got.shape) == (want.axis_names,
+                                               dict(want.shape))
     with pytest.raises(ValueError, match="at least 1"):
         make_test_mesh(data=0)
 
