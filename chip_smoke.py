@@ -233,6 +233,21 @@ One JSON line per phase:
    timeline), or shares a cell with the real server (non-empty
    latencies); each trace replayed bit-identically under the barrier and
    async engines;
+22b. examples — the four examples (``examples/torch_*.py``) through
+   their ``main``, after the attention kernels are held to their plain
+   versions at the shapes the examples give them (lines
+   examples_flash_attention, examples_flash_attention_bwd,
+   examples_decode_attention: hd 16 at the qwen3-4b smoke config's 4/2
+   heads, B=2, S=32 and B=4, S=64, the decode caches of 24 and 80
+   positions; train_100m --full's B=8, S=256, 8/2 heads, hd 64; bf16 and
+   float32, timed beside SDPA): quickstart on the card (launches: part 1's
+   forward and part 2's ``generate``); serve_batch at its defaults, then
+   its ``run`` in float32 on the card and on the CPU from the same
+   weights, tokens equal; train_100m ``--full --steps 60 --fail-at 40``
+   (one restart from the checkpoint of step 25, the loss falling, every
+   step's attention launches by source counted, replays included; step
+   seconds, tokens/s, peak memory); cluster_sim ``--smoke`` (reference
+   engines only; its dist workers fork after CUDA started, no launch);
 23. kernels — one object per kernel: launches on its paths (the main
    path and the sweep for ``minskew`` and ``hub_route``, the train paths
    for the backward kernels; the float32 split-TF32 kernels and the
@@ -1349,7 +1364,8 @@ def _library(torch, lib, iters: int = ITERS) -> dict:
             "library_device_ms": device_ms(torch, lib)[0]}
 
 
-def phase_flash_attention(torch, np, dev):
+def phase_flash_attention(torch, np, dev, cases=None,
+                          phase: str = "flash_attention") -> list:
     """Kernel vs plain version (``attention_flat_plain``) on the card, the
     source each case ran held to ``fwd_source``'s, two float32 calls
     bit-equal; times at the serving shapes beside
@@ -1357,7 +1373,9 @@ def phase_flash_attention(torch, np, dev):
     calls it; a window becomes a boolean band mask, since SDPA has no
     window argument).  A float32 row's bound is at 3 x operations over
     the dense TF32 peak (the split's three products),
-    ``fp32_cuda_core_bound_ms`` beside it."""
+    ``fp32_cuda_core_bound_ms`` beside it.  ``cases`` (default
+    ``FLASH_CASES``) and ``phase`` name another set; the strided views
+    run in the default set only.  Returns the timed rows."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (flash_attention_flat,
                                                      fwd_source)
@@ -1368,7 +1386,7 @@ def phase_flash_attention(torch, np, dev):
     for dt in (torch.bfloat16, torch.float32):
         dname = _dname(torch, dt)
         for name, b, h, hkv, sq, sk, hd, causal, window, timed in \
-                FLASH_CASES:
+                cases or FLASH_CASES:
             q = torch.randn(b * h, sq, hd, generator=g, device=dev).to(dt)
             k = torch.randn(b * hkv, sk, hd, generator=g, device=dev).to(dt)
             v = torch.randn(b * hkv, sk, hd, generator=g, device=dev).to(dt)
@@ -1433,9 +1451,9 @@ def phase_flash_attention(torch, np, dev):
                     torch, lambda: ops.flash_attention(*bshd, causal=causal),
                     iters)
                 del bshd
-    emit("flash_attention", tolerance=ATTN_TOL, shapes=main, edge=edge,
-         strided=flash_strided_views(torch, dev, g))
-    return main[0], next(r for r in main if r["case"] == "parity")
+    emit(phase, tolerance=ATTN_TOL, shapes=main, edge=edge,
+         strided=None if cases else flash_strided_views(torch, dev, g))
+    return main
 
 
 def flash_strided_views(torch, dev, g, b=2, s=200, h=8, hkv=2, hd=128):
@@ -1470,10 +1488,13 @@ def flash_strided_views(torch, dev, g, b=2, s=200, h=8, hkv=2, hd=128):
     return rows
 
 
-def phase_decode_attention(torch, np, dev):
+def phase_decode_attention(torch, np, dev, cases=None,
+                           phase: str = "decode_attention") -> list:
     """Kernel vs plain version (``decode_attention_plain``) on the card;
     times at the decode shapes beside ``scaled_dot_product_attention``
-    with a boolean mask built from ``lengths``."""
+    with a boolean mask built from ``lengths``.  ``cases`` (default
+    ``DECODE_CASES``) and ``phase`` name another set.  Returns the timed
+    rows."""
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       n_splits, split_chunk)
     from repro_torch.kernels.ref import decode_attention_plain
@@ -1482,7 +1503,7 @@ def phase_decode_attention(torch, np, dev):
     main, edge = [], []
     for dt in (torch.bfloat16, torch.float32):
         dname = _dname(torch, dt)
-        for name, b, h, hkv, s, hd, lens, timed in DECODE_CASES:
+        for name, b, h, hkv, s, hd, lens, timed in cases or DECODE_CASES:
             if lens is None:
                 lens = rng.integers(1, s + 1, size=b).tolist()
             elif lens == "edges":
@@ -1526,8 +1547,8 @@ def phase_decode_attention(torch, np, dev):
                 **splits, **_timings(torch, kern, plain, DECODE_KERNELS),
                 **_library(torch, lib),
                 "bound_ms": bound, "bound_by": by, "bytes": n_bytes})
-    emit("decode_attention", tolerance=ATTN_TOL, shapes=main, edge=edge)
-    return main[0]
+    emit(phase, tolerance=ATTN_TOL, shapes=main, edge=edge)
+    return main
 
 
 RGLRU_KERNELS = ("rglru_chained_kernel",)
@@ -2750,7 +2771,8 @@ def _bwd_route(torch, dt, hd) -> str:
     return bwd_source(dt, hd)
 
 
-def phase_flash_attention_bwd(torch, np, dev):
+def phase_flash_attention_bwd(torch, np, dev, cases=None,
+                              phase: str = "flash_attention_bwd") -> list:
     """The attention backward kernels (``csrc/flash_attention_bwd_sm90.cu``
     for bf16, ``csrc/flash_attention_bwd_tf32x3.cu`` for float32)
     against their plain version (``attention_flat_bwd_plain``) on the
@@ -2758,8 +2780,9 @@ def phase_flash_attention_bwd(torch, np, dev):
     source and head parts its dtype and shape pick; timed at the
     trainer's shape beside SDPA's backward (its forward done before the
     timed window); two calls bit-equal; and through ``ops.flash_attention``
-    under autograd on non-contiguous (B, S, H, hd) views.  Returns the
-    first timed row of each dtype (bf16, float32)."""
+    under autograd on non-contiguous (B, S, H, hd) views (in the default
+    set only: ``cases``, default ``FLASH_BWD_CASES``, and ``phase`` name
+    another).  Returns the timed rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
@@ -2772,7 +2795,7 @@ def phase_flash_attention_bwd(torch, np, dev):
     for dt in (torch.bfloat16, torch.float32):
         dname = _dname(torch, dt)
         for name, b, h, hkv, sq, sk, hd, causal, window, timed in \
-                FLASH_BWD_CASES:
+                cases or FLASH_BWD_CASES:
             q, do = (torch.randn(b, sq, h, hd, generator=g,
                                  device=dev).to(dt) for _ in range(2))
             k, v = (torch.randn(b, sk, hkv, hd, generator=g,
@@ -2849,7 +2872,7 @@ def phase_flash_attention_bwd(torch, np, dev):
                 * 1e3})
             del out, q4, k4, v4
     strided = []
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in () if cases else (torch.bfloat16, torch.float32):
         b, s, h, hkv, hd = 2, 150, 8, 2, 64
         x = torch.randn(b, s, h + 2 * hkv, hd, generator=g,
                         device=dev).to(dt).requires_grad_()
@@ -2870,13 +2893,12 @@ def phase_flash_attention_bwd(torch, np, dev):
         strided.append({"view": "fused", "dtype": _dname(torch, dt),
                         "source": source, "contiguous": q.is_contiguous(),
                         "max_abs_err": err})
-    emit("flash_attention_bwd", tolerance=ATTN_TOL,
+    emit(phase, tolerance=ATTN_TOL,
          tolerance_relative_to="max(1, largest |plain value|), of each "
                                "gradient and of the three",
          rel_norm_limit=ATTN_BWD_REL_NORM,
-         shapes=main, edge=edge, strided=strided)
-    return tuple(next(r for r in main if r["dtype"] == d)
-                 for d in ("bfloat16", "float32"))
+         shapes=main, edge=edge, strided=strided or None)
+    return main
 
 
 def phase_train(torch, np, dev, spec=TRAIN, phase: str = "train"):
@@ -3373,22 +3395,225 @@ def phase_dry_run(smi: str, worker, path: str) -> None:
                              f"{DRY_RUN_PHASE_S} s")
 
 
+# ------------------------------------------------------------- examples
+
+
+#: the shapes the four examples give the attention kernels, which no other
+#: phase launches: quickstart's forward (B=2, S=32) and its server's
+#: prefill (B=2, S=16), serve_batch's prefill (B=4, S=64), all at the
+#: qwen3-4b smoke config's 4/2 heads and hd 16; train_100m --full's
+#: (B=8, S=256, 8/2 heads, hd 64), every one causal
+EXAMPLE_FLASH_CASES = [
+    ("quickstart", 2, 4, 2, 32, 32, 16, True, 0, True),
+    ("quickstart_prefill", 2, 4, 2, 16, 16, 16, True, 0, False),
+    ("serve_batch", 4, 4, 2, 64, 64, 16, True, 0, True),
+    ("train_100m", 8, 8, 2, 256, 256, 64, True, 0, True)]
+EXAMPLE_FLASH_BWD_CASES = [c for c in EXAMPLE_FLASH_CASES
+                           if c[0] != "quickstart_prefill"]
+#: their decode caches: quickstart's 16 + 8 positions and serve_batch's
+#: 64 + 16, lengths as the decode steps reach them
+EXAMPLE_DECODE_CASES = [
+    ("quickstart", 2, 4, 2, 24, 16, [17, 23], True),
+    ("serve_batch", 4, 4, 2, 80, 16, [65, 70, 75, 79], True)]
+#: train_100m --full: steps and the step of the simulated host failure
+#: (a checkpoint every 25 steps: restored from 25, steps 25-39 replayed)
+EXAMPLE_TRAIN = (60, 40)
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(fn, *args):
+    """``fn(*args)`` with its standard output kept: (its result, the
+    lines it printed, seconds).  On a failure the lines go to standard
+    error before the exception goes on."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+    except BaseException:
+        sys.stderr.write(buf.getvalue())
+        raise
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_examples(torch, np, dev) -> tuple:
+    """The four examples (``examples/torch_*.py``) through their ``main``
+    on the card, after their kernel shapes are held to the plain versions
+    (``examples_flash_attention``, ``examples_flash_attention_bwd``,
+    ``examples_decode_attention``): quickstart; serve_batch at its
+    defaults, then its ``run`` in float32 on the card and on the CPU with
+    the same weights, tokens equal; train_100m ``--full`` with a host
+    failure (one restart, the loss falling); cluster_sim ``--smoke``,
+    whose dist workers fork after CUDA started.  Each example's launches
+    are counted from 0 and held to the count its run must give.  Returns
+    the launches by path and the timed kernel rows by the kernels line's
+    entry."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import tree_map
+    t_phase = time.perf_counter()
+    fa = phase_flash_attention(torch, np, dev, EXAMPLE_FLASH_CASES,
+                               "examples_flash_attention")
+    fb = phase_flash_attention_bwd(torch, np, dev, EXAMPLE_FLASH_BWD_CASES,
+                                   "examples_flash_attention_bwd")
+    da = phase_decode_attention(torch, np, dev, EXAMPLE_DECODE_CASES,
+                                "examples_decode_attention")
+    kernels_s = time.perf_counter() - t_phase
+    smoke = configs.get_smoke("qwen3-4b")
+    paths = {}
+
+    qs = load_example("torch_quickstart")
+    _zero_kernel_counts()
+    out, q_lines, q_s = run_example(qs.main, [])
+    torch.cuda.synchronize()
+    srv = out["serving"]["stats"]
+    # part 1's forward, then part 2's generate
+    want = _added(expected_launches(smoke, srv.decode_steps),
+                  expected_launches(smoke, 0))
+    paths["examples_quickstart"] = _hold_launches(
+        torch, smoke, want, "examples_quickstart")
+    logits, live = out["model"][0], out["live"]
+    if tuple(logits.shape) != (2, 32, smoke.vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            live["status"] != "ok" or live["round_trips"] != 20:
+        raise AssertionError(f"examples_quickstart: logits "
+                             f"{tuple(logits.shape)}, live {live}")
+
+    sb = load_example("torch_serve_batch")
+    _zero_kernel_counts()
+    out, s_lines, s_s = run_example(sb.main, [])
+    torch.cuda.synchronize()
+    stats = out["stats"]
+    paths["examples_serve_batch"] = _hold_launches(
+        torch, smoke, expected_launches(smoke, stats.decode_steps),
+        "examples_serve_batch")
+    # float32 on the card and on the CPU from the same weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dataclasses.replace(smoke, dtype=torch.float32)
+    cpu = registry.init(f32, torch.Generator().manual_seed(0), device="cpu")
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    prompts = serve_prompts(np, f32.vocab - 1, 4, 64, seed=13) + 1
+    _zero_kernel_counts()
+    card, _, _ = run_example(sb.run, "qwen3-4b", 4, 64, 16, f32, gpu,
+                             prompts, dev)
+    torch.cuda.synchronize()
+    paths["examples_serve_batch_f32"] = _hold_launches(
+        torch, f32, expected_launches(f32, card["stats"].decode_steps),
+        "examples_serve_batch_f32")
+    host, _, _ = run_example(sb.run, "qwen3-4b", 4, 64, 16, f32, cpu,
+                             prompts, "cpu")
+    if not np.array_equal(card["tokens"], host["tokens"]) or \
+            card["stats"].decode_steps != host["stats"].decode_steps:
+        raise AssertionError(f"examples_serve_batch_f32: card tokens "
+                             f"{card['tokens'].tolist()} != CPU "
+                             f"{host['tokens'].tolist()}")
+
+    tr = load_example("torch_train_100m")
+    steps, fail_at = EXAMPLE_TRAIN
+    full = tr.model_100m()
+    tc = tr.trainer_config(True, steps, "")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt:
+        _zero_kernel_counts()
+        out, t_lines, t_s = run_example(
+            tr.main, ["--full", "--steps", str(steps), "--fail-at",
+                      str(fail_at), "--ckpt-dir", ckpt])
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    ran = [h["step"] for h in hist]
+    if out["restarts"] != 1 or ran != list(range(fail_at)) + list(
+            range(25, steps)):
+        raise AssertionError(f"examples_train_100m: restarts "
+                             f"{out['restarts']}, steps run {ran}")
+    want = expected_train_launches(full, len(hist))
+    paths["examples_train_100m"] = _hold_launches(
+        torch, full, want, "examples_train_100m")
+    bwd = _by_source()
+    if bwd != expected_bwd_sources(torch, full, want["flash_attention_bwd"]):
+        raise AssertionError(f"examples_train_100m: attention backward by "
+                             f"source {bwd}")
+    walls = [h["wall_s"] for h in hist]
+    step_s = statistics.median(walls)
+
+    cs = load_example("torch_cluster_sim")
+    if not torch.cuda.is_initialized():
+        raise AssertionError("examples_cluster_sim: CUDA not initialised "
+                             "before dist")
+    _zero_kernel_counts()
+    _, c_lines, c_s = run_example(cs.main, ["--smoke"])
+    if any(_kernel_counts().values()) or not any(
+            "identical results" in line for line in c_lines):
+        raise AssertionError(f"examples_cluster_sim: {_kernel_counts()}, "
+                             f"{c_lines}")
+    emit("examples", kernels_s=kernels_s,
+         quickstart={"s": q_s, "lines": q_lines,
+                     "launches": paths["examples_quickstart"]},
+         serve_batch={"s": s_s, "lines": s_lines,
+                      "prefill_s": stats.prefill_s,
+                      "per_token_ms": stats.per_token_ms,
+                      "throughput_tok_s": stats.throughput_tok_s,
+                      "decode_steps": stats.decode_steps,
+                      "launches": paths["examples_serve_batch"],
+                      "float32_tokens_equal_cpu": True,
+                      "float32_launches": paths["examples_serve_batch_f32"]},
+         train_100m={"s": t_s, "lines": t_lines, "arch": full.name,
+                     "n_params": full.n_params(), "n_layers": full.n_layers,
+                     "d_model": full.d_model, "remat": full.remat,
+                     "global_batch": tc.global_batch,
+                     "seq_len": tc.seq_len, "steps": steps,
+                     "fail_at": fail_at, "steps_run": len(hist),
+                     "restarts": out["restarts"],
+                     "loss_first": hist[0]["loss"],
+                     "loss_last": hist[-1]["loss"],
+                     "step_s_median": step_s, "step_s_min": min(walls),
+                     "tokens_per_s": tc.global_batch * tc.seq_len / step_s,
+                     "peak_memory_bytes": peak,
+                     "launches": paths["examples_train_100m"],
+                     "attention_bwd_by_source": bwd},
+         cluster_sim={"s": c_s, "lines": c_lines},
+         phase_s=time.perf_counter() - t_phase)
+    rows = {"decode_attention": da}
+    for kname, got in (("flash_attention", fa), ("flash_attention_bwd", fb)):
+        rows[kname] = [r for r in got if r["dtype"] == "bfloat16"]
+        rows[BY_SOURCE[kname]] = [r for r in got if r["dtype"] == "float32"]
+    return paths, rows
+
+
 KERNEL_PHASES = {"flash_attention": phase_flash_attention,
                  "flash_attention_bwd": phase_flash_attention_bwd,
                  "decode_attention": phase_decode_attention,
                  "rglru_scan": phase_rglru_scan,
                  "rglru_scan_bwd": phase_rglru_scan_bwd,
                  "mlstm_chunkwise": phase_mlstm_chunkwise,
-                 "mlstm_chunkwise_bwd": phase_mlstm_chunkwise_bwd}
+                 "mlstm_chunkwise_bwd": phase_mlstm_chunkwise_bwd,
+                 "examples": phase_examples}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", type=lambda v: v.split(","), default=[],
-                    help="run only these kernel phases (of "
+                    help="run only these phases (of "
                          f"{', '.join(KERNEL_PHASES)}) after device and "
-                         "build, each held to its plain version and "
-                         "timed; prints no kernels line and no ok line")
+                         "build, each kernel held to its plain version "
+                         "and timed; prints no kernels line and no ok "
+                         "line")
     ap.add_argument("--dry-run-counts", metavar="PATH", default=None,
                     help="write the dry_run phase's counts to PATH and "
                          "exit (no card needed; main starts this itself)")
@@ -3425,9 +3650,12 @@ def main(argv=None) -> int:
     phase_check_interval(torch, np, dev, axis, tick)
     campaign_main_launches = phase_campaign_main(torch, dev)
     campaign_launches = phase_campaign(torch, dev)
-    fa, fa32 = phase_flash_attention(torch, np, dev)
-    fb = phase_flash_attention_bwd(torch, np, dev)
-    da = phase_decode_attention(torch, np, dev)
+    fa_rows = phase_flash_attention(torch, np, dev)
+    fa, fa32 = fa_rows[0], next(r for r in fa_rows if r["case"] == "parity")
+    fb_rows = phase_flash_attention_bwd(torch, np, dev)
+    fb = tuple(next(r for r in fb_rows if r["dtype"] == d)
+               for d in ("bfloat16", "float32"))
+    da = phase_decode_attention(torch, np, dev)[0]
     rg = phase_rglru_scan(torch, np, dev)
     rgb = phase_rglru_scan_bwd(torch, np, dev)
     ml = phase_mlstm_chunkwise(torch, np, dev)
@@ -3465,6 +3693,8 @@ def main(argv=None) -> int:
     phase_dry_run(smi, dry_worker, dry_path)
     phase_live_recovery(torch, dev)
     phase_live_colocated(torch, dev)
+    ex_paths, ex_rows = phase_examples(torch, np, dev)
+    by_path.update(ex_paths)
     paths = {k: {"main_path": launches[k], "sweep": sweep_launches[k],
                  "campaign_main": campaign_main_launches[k],
                  "campaign": campaign_launches[k]}
@@ -3540,6 +3770,11 @@ def main(argv=None) -> int:
             "library_ms": row.get("library_ms"),
             **({"launch_floor_ms": row["launch_floor_ms"]}
                if "launch_floor_ms" in row else {}),
+            **({"examples_shapes": [
+                {k: r[k] for k in ("case", "dtype", "max_abs_err",
+                                   "kernel_ms", "kernel_device_ms",
+                                   "bound_ms", "library_ms")}
+                for r in ex_rows[kname]]} if kname in ex_rows else {}),
             "shape": {k: row[k] for k in row
                       if k in ("V", "N", "S", "M", "links", "B", "H", "Hkv",
                                "hd", "dtype", "lengths", "W", "BH")}})

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``,
-the port runs with both blocked from import, and the vectorized engine
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and none of the port's examples (``examples/torch_*.py``)
+imports JAX or anything of the JAX package ``repro``, the port and its
+examples run with both blocked from import, and the vectorized engine
 and the serving path never land on the CPU unless the caller asks for
 it."""
 import ast
@@ -14,8 +15,9 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+EXAMPLE_FILES = sorted((ROOT / "examples").glob("torch_*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + EXAMPLE_FILES
 BLOCKED = ("jax", "jaxlib", "repro")
 
 
@@ -132,6 +134,52 @@ def test_port_runs_with_jax_and_repro_blocked():
         timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok ")
+
+
+def test_examples_run_with_jax_and_repro_blocked():
+    """Each of the four examples imports with ``jax`` and ``repro``
+    blocked; quickstart's model and serving parts and serve_batch run a
+    few tokens on the CPU."""
+    assert [p.name for p in EXAMPLE_FILES] == [
+        "torch_cluster_sim.py", "torch_quickstart.py",
+        "torch_serve_batch.py", "torch_train_100m.py"]
+    code = textwrap.dedent(f"""
+        import importlib.util
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        mods = {{}}
+        for path in {[str(p) for p in EXAMPLE_FILES]!r}:
+            name = path.rsplit("/", 1)[1][:-3]
+            spec = importlib.util.spec_from_file_location(name, path)
+            mods[name] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mods[name])
+        q = mods["torch_quickstart"]
+        logits, loss = q.part1_model(device="cpu")
+        assert tuple(logits.shape) == (2, 32, 256), logits.shape
+        out = q.part2_serving(device="cpu")
+        assert out["tokens"].shape == (2, 8), out["tokens"].shape
+        out = mods["torch_serve_batch"].run(batch=2, prompt_len=8,
+                                            new_tokens=3, device="cpu")
+        assert out["tokens"].shape[0] == 2, out["tokens"].shape
+        assert callable(mods["torch_train_100m"].main)
+        assert callable(mods["torch_cluster_sim"].run_autoscale)
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not bad, bad
+        print("ok")
+        """)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1] == "ok"
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
